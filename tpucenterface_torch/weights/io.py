@@ -1,0 +1,80 @@
+"""Safetensors reading with numpy alone.
+
+Mirrors `tpucenterface/weights/io.py::load_safetensors`, which uses the
+`safetensors` package; that package is not installed everywhere the port runs,
+so this module reads the format itself:
+
+    8 bytes   little-endian u64: length N of the JSON header
+    N bytes   JSON: {name: {"dtype", "shape", "data_offsets": [begin, end]}, ...}
+              (+ an optional "__metadata__" entry)
+    rest      the tensors' raw little-endian bytes, offsets relative to here
+
+Keys are '/'-joined flax paths ('params/backbone/stem/conv/kernel'), split
+back into the nested {'params': ..., 'batch_stats': ...} tree.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Any, Dict
+
+import numpy as np
+
+_DTYPES = {
+    "F64": "<f8",
+    "F32": "<f4",
+    "F16": "<f2",
+    "I64": "<i8",
+    "I32": "<i4",
+    "I16": "<i2",
+    "I8": "i1",
+    "U8": "u1",
+    "BOOL": "?",
+}
+
+
+def read_safetensors_flat(path: str) -> Dict[str, np.ndarray]:
+    """{key: array} of every tensor in the file, keys as stored."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 8:
+        raise ValueError(f"{path}: too short for a safetensors file")
+    (n,) = struct.unpack("<Q", data[:8])
+    if 8 + n > len(data):
+        raise ValueError(f"{path}: header length {n} runs past the file end")
+    header = json.loads(data[8 : 8 + n].decode("utf-8"))
+    body = memoryview(data)[8 + n :]
+    out: Dict[str, np.ndarray] = {}
+    for key, info in header.items():
+        if key == "__metadata__":
+            continue
+        dt = _DTYPES.get(info["dtype"])
+        if dt is None:
+            raise ValueError(f"{path}: tensor {key} has unsupported dtype {info['dtype']}")
+        begin, end = info["data_offsets"]
+        shape = tuple(int(d) for d in info["shape"])
+        dtype = np.dtype(dt)
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - begin != count * dtype.itemsize or end > len(body):
+            raise ValueError(f"{path}: tensor {key} has inconsistent data_offsets")
+        arr = np.frombuffer(body[begin:end], dtype=dtype, count=count)
+        out[key] = arr.reshape(shape).astype(dtype.newbyteorder("="), copy=True)
+    return out
+
+
+def unflatten(flat: Dict[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """{'a/b/c': v} -> {'a': {'b': {'c': v}}}."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split(sep)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def load_safetensors(path: str) -> Dict[str, Any]:
+    """Nested {'params': ..., 'batch_stats': ...} tree of numpy arrays."""
+    return unflatten(read_safetensors_flat(path))
