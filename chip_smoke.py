@@ -5,16 +5,27 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA source of the path (`csrc/decode.cu`) with nvcc
-   into build/kernels/;
+2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
+   `csrc/mbconv.cu`, `csrc/nms.cu`) with nvcc into build/kernels/, one nvcc
+   per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the shapes the main path gives it and on tie-heavy inputs;
-4. main path: `Detector.detect_batch` / `detect` on the flagship weights
-   (artifacts/flagship.safetensors) with the fused decode kernel, at batch 32
-   and 640x640, on odd image sizes, and at the flagship's own 320 against
-   the port's CPU run; every kernel's launch count must rise;
-5. times with CUDA events (median after warm-up), and a torch.profiler
-   summary of one bs32@640 batch (device busy share, top device ops).
+   card, at the shapes the main paths give it, on ragged shapes and on
+   tie-heavy inputs;
+4. main paths, each with every launch counter set to 0 just before and read
+   just after:
+   a. `Detector.detect_batch` / `detect` on the flagship weights
+      (artifacts/flagship.safetensors) with the fused decode kernel, at batch
+      32 and 640x640, on odd image sizes, and at the flagship's own 320
+      against the port's CPU run;
+   b. the same weights with `inference_engine="fast"` (FastEngine and the
+      fused MBConv kernel) at batch 32 and 640x640 against the module
+      forward on the same card, and at 320;
+   c. a landmark model (random weights from a seed) at batch 4 and 320x320,
+      whose decode runs the fused sigmoid + pseudo-NMS kernel, bit-equal to
+      the reference decode;
+5. times with CUDA events (median after warm-up), and torch.profiler
+   summaries of one bs32@640 batch of the module forward and of the fast
+   engine (device busy share, top device ops).
 
 The images are procedural faces painted with numpy from a seed; the run
 checks that the detector finds them. The last two lines are the
@@ -35,9 +46,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "artifacts", "flagship.safetensors")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
+# and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 # The kernel's contract (tests/test_pallas_decode.py): indices equal.
 SCORE_ATOL = 1e-6
@@ -45,6 +58,27 @@ BOX_ATOL = 1e-4
 # Card against the port's CPU run at 320, both bfloat16: the bound the CPU
 # tests state for port-against-JAX bfloat16 (tests/test_torch_detector.py).
 BF16_BOX_ATOL, BF16_SCORE_ATOL, BF16_FIRM = 2.0, 0.03, 0.1
+# The fast engine against the module forward at bs32@640, both bfloat16 on the
+# card. Each is its own rounding of the float32 network, and a weak or nearly
+# tied peak moves by a cell (4 px) or along a ridge under either rounding: the
+# module forward itself loses 3 of 145 detections >= 0.1 against the float32
+# forward under the bounds above. So the two bfloat16 forwards must match on
+# at least this share of their detections >= BF16_FIRM (each way), and the
+# float32 forward on the same card is the arbiter: the fast engine may not
+# miss it on more detections than the module forward does plus
+# FAST_F32_SLACK, and its heat map may not lie further from the float32 one
+# than the module forward's does, times FAST_F32_HM_RATIO.
+FAST_MATCH_SHARE, FAST_F32_SLACK, FAST_F32_HM_RATIO = 0.97, 2, 1.25
+# The MBConv kernel against its plain version: both round to bfloat16 at the
+# same points, but the tensor cores sum the products in another order than a
+# float32 matrix product, so a value next to a bfloat16 rounding boundary can
+# land one step away, at an intermediate or at the output. One bfloat16 step
+# is at most 2^-7 of the value; the absolute term covers a flipped
+# intermediate carried into a small output. At most 1% of the values may differ.
+MBCONV_ATOL, MBCONV_RTOL, MBCONV_MAX_DIFFERING = 0.04, 2.0 ** -6, 0.01
+# The blocks of the default model with distinct kernel shapes at 640, and how
+# many blocks of a forward share each shape (FastEngine.kernel_blocks(640)).
+MBCONV_BLOCKS_640 = {0: 1, 2: 1, 4: 2, 7: 3, 10: 1, 11: 2}
 
 
 def log(msg: str) -> None:
@@ -152,20 +186,23 @@ def cuda_ms(fn, iters, warmup=3):
     return float(np.median(cuda_times(fn, iters, warmup)))
 
 
-def device_profile(fn, iters=3):
+def device_profile(fn, iters=5):
     """torch.profiler over `iters` calls of `fn()`: the device's busy share
-    of the wall time and the device time of the top operators."""
+    of the wall time (the median call's, each call ending in a synchronize)
+    and the device time of the top operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(iters):
+            t0 = time.perf_counter()
             fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
     # the events that ran on the device (kernels, copies, memsets): their
     # self times sum to the busy time, as kernels of one stream do not overlap
     busy_us, top = 0.0, {}
@@ -207,11 +244,23 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per source, all started together (nvcc runs in a subprocess,
+    so threads are enough)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tpucenterface_torch.kernels import build
 
+    def timed(name):
+        t0 = time.perf_counter()
+        build.load(name)
+        return time.perf_counter() - t0
+
+    names = ("decode", "mbconv", "nms")
     t0 = time.perf_counter()
-    build.load("decode")
-    log(f"[build] csrc/decode.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = list(pool.map(timed, names))
+    each = ", ".join(f"csrc/{n}.cu {t:.1f} s" for n, t in zip(names, secs))
+    log(f"[build] {each}; all built and loaded in {time.perf_counter() - t0:.1f} s")
 
 
 def _fused_feats(hm, wh, off):
@@ -244,7 +293,7 @@ def _sparse_feats(gen, b, h, w, dev):
     return _fused_feats(hm.to(dev), wh.to(dev), off.to(dev))
 
 
-def phase_kernels(det_feats):
+def phase_kernels_decode(det_feats):
     """decode_feats_fused (CUDA) against decode_feats_fused_plain on the card.
     Returns the largest error seen."""
     from tpucenterface_torch.config import DecodeConfig
@@ -280,21 +329,121 @@ def phase_kernels(det_feats):
     return worst
 
 
-def match_detections(a_det, b_det, box_atol, score_atol, firm):
-    """Every detection of either side scoring >= `firm` finds one on the
-    other side with all box corners within `box_atol` px and the score
-    within `score_atol`."""
-    for a, b in ((a_det, b_det), (b_det, a_det)):
-        sel = a.scores >= firm
-        if not sel.any():
-            continue
-        if not len(b.scores):
-            raise AssertionError(f"no detections to match {a.scores[sel]}")
-        dist = np.abs(a.boxes[sel][:, None, :] - b.boxes[None, :, :]).max(axis=-1)
-        close = np.abs(a.scores[sel][:, None] - b.scores[None, :]) <= score_atol
-        ok = ((dist <= box_atol) & close).any(axis=1)
-        if not ok.all():
-            raise AssertionError(f"unmatched {a.boxes[sel][~ok]} scores {a.scores[sel][~ok]}")
+def mbconv_block_inputs(det, x):
+    """{block: (NHWC bf16 input, (w1, b1, wd, bd, w2, b2), skip)} for the
+    blocks of MBCONV_BLOCKS_640: the activations the flagship network gives
+    each block on the batch `x`, and the block's own weights."""
+    from tpucenterface_torch.weights.convert import mbconv_args_from_block
+
+    bb = det.model.backbone
+    blocks = det.variables["params"]["backbone"]
+    out = {}
+    with torch.inference_mode():
+        y = bb.stem(x.permute(0, 3, 1, 2).to(bb.dtype))
+        for i in range(max(MBCONV_BLOCKS_640) + 1):
+            mod = getattr(bb, f"block_{i}")
+            if i in MBCONV_BLOCKS_640:
+                args = tuple(
+                    None if a is None else torch.from_numpy(a).to(x.device, torch.bfloat16)
+                    for a in mbconv_args_from_block(blocks[f"block_{i}"])
+                )
+                out[i] = (y.permute(0, 2, 3, 1).contiguous(), args, mod.use_skip)
+            y = mod(y)
+    return out
+
+
+def _random_mbconv(gen, b, h, w, cin, ce, cout, expand, dev):
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, torch.bfloat16)
+
+    x = rnd(b, h, w, cin, scale=0.5)
+    w1, b1 = (rnd(cin, ce, scale=0.3), rnd(ce, scale=0.1)) if expand else (None, None)
+    return x, (w1, b1, rnd(3, 3, ce, scale=0.3), rnd(ce, scale=0.1), rnd(ce, cout, scale=2 * ce ** -0.5),
+               rnd(cout, scale=0.1))
+
+
+def phase_kernels_mbconv(block_inputs):
+    """fused_mbconv (CUDA) against fused_mbconv_plain on the card: the six
+    main-path shapes at batch 32 on the flagship's own activations and
+    weights, and ragged shapes on random ones. Returns {case: max |err|}."""
+    from tpucenterface_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+
+    dev = next(iter(block_inputs.values()))[0].device
+    gen = torch.Generator().manual_seed(4321)
+    cases = [(f"block {i} bs32@640", x, args, skip) for i, (x, args, skip) in block_inputs.items()]
+    for name, cin, ce, cout, expand, skip in (
+        ("ragged expand+skip 2x26x38", 24, 144, 24, True, True),
+        ("ragged expand 2x26x38", 16, 96, 24, True, False),
+        ("ragged no expand 2x26x38", 32, 32, 16, False, False),
+        ("ragged 160->960->320 2x19x33", 160, 960, 320, True, False),
+    ):
+        h, w = (19, 33) if cin == 160 else (26, 38)
+        x, args = _random_mbconv(gen, 2, h, w, cin, ce, cout, expand, dev)
+        cases.append((name, x, args, skip))
+    errs = {}
+    for name, x, args, skip in cases:
+        got = fused_mbconv(x, *args, skip=skip).float()
+        torch.cuda.synchronize()
+        want = fused_mbconv_plain(x, *args, skip=skip).float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"[kernels] mbconv {name}: non-finite output")
+        diff = (got - want).abs()
+        err, differing = diff.max().item(), (diff > 0).float().mean().item()
+        over = (diff > MBCONV_ATOL + MBCONV_RTOL * want.abs()).sum().item()
+        cin, ce, cout = x.shape[-1], args[2].shape[-1], args[4].shape[-1]
+        log(f"[kernels] mbconv {name}: x {tuple(x.shape)} {cin}->{ce}->{cout} skip={skip}: "
+            f"max |err| {err:.3g} (max |out| {want.abs().max().item():.3g}), differing {differing:.2e} of values, "
+            f"{over} over atol {MBCONV_ATOL} + rtol {MBCONV_RTOL:.4f}")
+        if over or differing > MBCONV_MAX_DIFFERING:
+            raise AssertionError(f"[kernels] mbconv {name}: {over} values over the tolerance, {differing} differing")
+        errs[name] = err
+        del got, want, diff
+    return errs
+
+
+def phase_kernels_nms():
+    """sigmoid_pseudo_nms_fused (CUDA) against its plain version on the card,
+    bit for bit. Returns the largest error seen (0 or the run fails)."""
+    from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused, sigmoid_pseudo_nms_plain
+
+    gen = torch.Generator().manual_seed(99)
+    cases = [(f"3*randn {shape}", 3.0 * torch.randn(*shape, generator=gen))
+             for shape in ((32, 160, 160), (1, 256, 256), (3, 33, 65))]
+    cases.append(("constant map (2, 40, 40)", torch.full((2, 40, 40), 0.25)))
+    cases = [(name, hm.cuda()) for name, hm in cases]
+    # the head's own layout: channel 0 of a (B, H, W, 5) map, read through strides
+    cases.append(("strided slice (4, 80, 80)", (3.0 * torch.randn(4, 80, 80, 5, generator=gen)).cuda()[..., 0]))
+    worst = 0.0
+    for name, hm in cases:
+        got, want = sigmoid_pseudo_nms_fused(hm), sigmoid_pseudo_nms_plain(hm)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"[kernels] nms {name}: bit-equal {torch.equal(got, want)}, {(got > 0).sum().item()} peaks")
+        if not torch.equal(got, want):
+            raise AssertionError(f"[kernels] nms {name}: differs from the plain version, max |err| {err}")
+        if "constant" in name and not (got == torch.sigmoid(hm)).all():
+            raise AssertionError("[kernels] nms: a plateau lost cells")
+        worst = max(worst, err)
+    return worst
+
+
+def count_unmatched(a_dets, b_dets):
+    """(detections of either side scoring >= BF16_FIRM, those of them with no
+    partner on the other side within BF16_BOX_ATOL px and BF16_SCORE_ATOL)."""
+    n = bad = 0
+    for x, y in zip(a_dets, b_dets):
+        for a, b in ((x, y), (y, x)):
+            sel = a.scores >= BF16_FIRM
+            n += int(sel.sum())
+            if not sel.any():
+                continue
+            if not len(b.scores):
+                bad += int(sel.sum())
+                continue
+            dist = np.abs(a.boxes[sel][:, None, :] - b.boxes[None, :, :]).max(axis=-1)
+            close = np.abs(a.scores[sel][:, None] - b.scores[None, :]) <= BF16_SCORE_ATOL
+            bad += int((~((dist <= BF16_BOX_ATOL) & close).any(axis=1)).sum())
+    return n, bad
 
 
 def check_result(dets, gts, hws, what):
@@ -317,17 +466,35 @@ def check_result(dets, gts, hws, what):
         raise AssertionError(f"[main] {what}: only {found} of {total} faces found")
 
 
-def phase_main(det, det320, det_cpu):
-    """The detect path, with every launch counter set to 0 just before and
-    read just after. Returns the launch counts."""
+def kernel_wrappers():
     from tpucenterface_torch.decode.fused_decode import decode_feats_fused
+    from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused
+    from tpucenterface_torch.ops.fused_mbconv import fused_mbconv
 
+    return {"decode_feats_fused": decode_feats_fused, "fused_mbconv": fused_mbconv,
+            "sigmoid_pseudo_nms_fused": sigmoid_pseudo_nms_fused}
+
+
+def zero_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def phase_main(det, det320, det_cpu):
+    """The detect path with the module forward and the fused decode, with
+    every launch counter set to 0 just before and read just after. Returns
+    the launch counts and the bs32@640 detections."""
     b640, g640 = paint_batch(1, 32, (640, 640))
     lb_imgs, lb_gts, lb_hws = letterboxed_batch(2)
     odd = [paint_scene(np.random.RandomState(3), (480, 720), 3), paint_scene(np.random.RandomState(4), (123, 457), 1)]
     s320, g320 = paint_batch(5, 4, (384, 512))
 
-    decode_feats_fused.launches = 0
+    zero_launches()
     calls = 0
     d640 = det.detect_batch(b640, score_thresh=0.05)
     calls += 1
@@ -337,23 +504,100 @@ def phase_main(det, det320, det_cpu):
     calls += len(odd)
     d320 = det320.detect_batch(s320, score_thresh=0.05)
     calls += 1
-    torch.cuda.synchronize()
-    launches = {"decode_feats_fused": decode_feats_fused.launches}
-    log(f"[main] decode calls {calls}, kernel launches {launches}")
-    if launches["decode_feats_fused"] != calls:
-        raise AssertionError(f"[main] the fused decode kernel ran {launches} times for {calls} decode calls")
+    launches = read_launches()
+    log(f"[main] module forward: decode calls {calls}, kernel launches {launches}")
+    if launches != {"decode_feats_fused": calls, "fused_mbconv": 0, "sigmoid_pseudo_nms_fused": 0}:
+        raise AssertionError(f"[main] module forward: launches {launches} for {calls} decode calls")
 
     check_result(d640, g640, [(640, 640)] * 32, "detect_batch bs32 640x640")
     check_result(dlb, lb_gts, lb_hws, "detect_batch bs32 letterboxed to 640")
     check_result(dodd, [g for _, g in odd], [img.shape[:2] for img, _ in odd], "detect 480x720 and 123x457")
     check_result(d320, g320, [(384, 512)] * 4, "detect_batch bs4 at 320")
     ref = det_cpu.detect_batch(s320, score_thresh=0.05)
-    n = 0
-    for a, b in zip(d320, ref):
-        match_detections(a, b, BF16_BOX_ATOL, BF16_SCORE_ATOL, BF16_FIRM)
-        n += int((a.scores >= BF16_FIRM).sum())
-    log(f"[main] 320: card and CPU agree on {n} detections >= {BF16_FIRM} "
-        f"(box {BF16_BOX_ATOL} px, score {BF16_SCORE_ATOL})")
+    n, bad = count_unmatched(d320, ref)
+    log(f"[main] 320: card and CPU, detections >= {BF16_FIRM} of either without a partner within "
+        f"{BF16_BOX_ATOL} px and {BF16_SCORE_ATOL} on the other: {bad} of {n}")
+    if bad or not n:
+        raise AssertionError(f"[main] 320: card and CPU differ on {bad} of {n} detections")
+    return launches, d640
+
+
+def phase_main_fast(det_fast, det_fast320, det_f32, d640_module, x, module_feats):
+    """The detect path through FastEngine and the fused MBConv kernel: bs32 @
+    640 on the batch of `phase_main`, whose module-forward detections
+    `d640_module` it must agree with (see FAST_MATCH_SHARE), and bs4 at 320.
+    `x` is a normalized bs32@640 batch and `module_feats` the module
+    forward's head maps of it. Returns the launch counts."""
+    b640, g640 = paint_batch(1, 32, (640, 640))
+    s320, g320 = paint_batch(5, 4, (384, 512))
+    at640 = len(det_fast._engine.kernel_blocks(640))
+    at320 = len(det_fast320._engine.kernel_blocks(320))
+    if (at640, at320) != (sum(MBCONV_BLOCKS_640.values()), 4):
+        raise AssertionError(f"[main] fast engine: {at640} kernel blocks at 640 and {at320} at 320")
+
+    zero_launches()
+    d640 = det_fast.detect_batch(b640, score_thresh=0.05)
+    after640 = read_launches()
+    d320 = det_fast320.detect_batch(s320, score_thresh=0.05)
+    launches = read_launches()
+    log(f"[main] fast engine: one forward at 640 {after640}, then one at 320 {launches}")
+    want = {"decode_feats_fused": 2, "fused_mbconv": at640 + at320, "sigmoid_pseudo_nms_fused": 0}
+    if after640["fused_mbconv"] != at640 or launches != want:
+        raise AssertionError(f"[main] fast engine: launches {after640}, {launches}; wanted {want}")
+
+    check_result(d640, g640, [(640, 640)] * 32, "fast engine detect_batch bs32 640x640")
+    check_result(d320, g320, [(384, 512)] * 4, "fast engine detect_batch bs4 at 320")
+    # the counts are read; what follows compares and launches outside the count
+    d640_f32 = det_f32.detect_batch(b640, score_thresh=0.05)
+    with torch.inference_mode():
+        hm_fast, hm_f32 = det_fast._forward(x)["hm"], det_f32._forward(x)["hm"]
+    hm_err = {"fast": (hm_fast - hm_f32).abs().mean().item(),
+              "module": (module_feats["hm"] - hm_f32).abs().mean().item()}
+    n, bad = count_unmatched(d640, d640_module)
+    n_fast, bad_fast = count_unmatched(d640, d640_f32)
+    n_mod, bad_mod = count_unmatched(d640_module, d640_f32)
+    log(f"[main] fast engine bs32@640, detections >= {BF16_FIRM} without a partner within {BF16_BOX_ATOL} px and "
+        f"{BF16_SCORE_ATOL} (both ways): fast/module {bad} of {n}, fast/float32 {bad_fast} of {n_fast}, "
+        f"module/float32 {bad_mod} of {n_mod}; mean |hm - float32 hm|: fast {hm_err['fast']:.4g}, "
+        f"module {hm_err['module']:.4g}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[main] fast engine: {bad} of {n} detections differ from the module forward's")
+    if bad_fast > bad_mod + FAST_F32_SLACK or hm_err["fast"] > FAST_F32_HM_RATIO * hm_err["module"]:
+        raise AssertionError("[main] fast engine: further from the float32 forward than the module forward is")
+    return launches
+
+
+def phase_main_landmarks():
+    """A landmark model (random weights from a seed) at bs4 @ 320: with
+    `use_pallas` the decode's dense stage runs the fused sigmoid + pseudo-NMS
+    kernel, and boxes, scores and landmarks are bit-equal to the reference
+    decode's. Returns the launch counts."""
+    from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig, ModelConfig
+
+    model = ModelConfig(with_landmarks=True)
+    on, off = (
+        Detector(config=DetectorConfig(model=model, decode=DecodeConfig(use_pallas=flag), default_size=320), seed=11)
+        for flag in (True, False)
+    )
+    imgs, _ = paint_batch(12, 4, (320, 320))
+    zero_launches()
+    d_on = on.detect_batch(imgs, score_thresh=0.0)
+    launches = read_launches()
+    d_off = off.detect_batch(imgs, score_thresh=0.0)
+    after_off = read_launches()
+    log(f"[main] landmark model bs4@320: kernel launches {launches}")
+    if launches != {"decode_feats_fused": 0, "fused_mbconv": 0, "sigmoid_pseudo_nms_fused": 1} or after_off != launches:
+        raise AssertionError(f"[main] landmark model: launches {launches}, then {after_off} without the switch")
+    for a, b in zip(d_on, d_off):
+        if a.landmarks is None or a.landmarks.shape != (len(a.scores), 5, 2) or len(a.scores) != 200:
+            raise AssertionError("[main] landmark model: bad result shapes")
+        if not (np.isfinite(a.boxes).all() and np.isfinite(a.scores).all() and np.isfinite(a.landmarks).all()):
+            raise AssertionError("[main] landmark model: non-finite output")
+        same = (a.boxes.tobytes() == b.boxes.tobytes() and a.scores.tobytes() == b.scores.tobytes()
+                and a.landmarks.tobytes() == b.landmarks.tobytes())
+        if not same:
+            raise AssertionError("[main] landmark model: use_pallas changes the result")
+    log("[main] landmark model bs4@320: boxes, scores and landmarks bit-equal with the fused dense stage on and off")
     return launches
 
 
@@ -373,102 +617,213 @@ def letterboxed_batch(seed):
     return imgs, gts, np.array(hws, np.int32)
 
 
-def phase_times(det, det_feats):
-    """End-to-end times (pre-sized and letterboxed bs32@640, single 640),
-    where the time goes at bs32@640, and the decode kernel's times at
-    bs32@640, K=200."""
+def bound(nbytes, ops_by_rate):
+    """(least ms the card could take, what bounds it): the bytes over the HBM
+    rate against each (operations, peak rate) pair; work on different pipes
+    can overlap, so the largest single term is the bound."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(ops / rate * 1e3 for ops, rate in ops_by_rate)
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def times_decode(det_feats):
+    """The decode kernel at bs32@640, K=200."""
     from tpucenterface_torch.config import DecodeConfig
     from tpucenterface_torch.decode.fused_decode import decode_feats_fused, decode_feats_fused_plain
     from tpucenterface_torch.decode.reference import decode_feats_with_idx
+
+    cfg = DecodeConfig(max_dets=200)
+    lib_cfg = DecodeConfig(max_dets=200, fast_topk=True)
+    b, h, w, _ = det_feats["hm"].shape
+    k = cfg.max_dets
+    # least work: hm read once, wh/off read at the K peaks, boxes, scores and
+    # indices written once; per cell the sigmoid (4), 8 window maxima and the
+    # peak select, float32
+    nbytes = b * h * w * 4 + b * k * 4 * 4 + b * k * (4 + 1 + 1) * 4
+    bound_ms, bound_by = bound(nbytes, [(b * h * w * 13, F32_OPS_PER_S)])
+    return {
+        "ms": cuda_ms(lambda: decode_feats_fused(det_feats, cfg), iters=50),
+        "plain_ms": cuda_ms(lambda: decode_feats_fused_plain(det_feats, cfg), iters=50),
+        "library_ms": cuda_ms(lambda: decode_feats_with_idx(det_feats, lib_cfg), iters=50),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def times_mbconv(det, block_inputs):
+    """The MBConv kernel at each main-path shape (batch 32, 640x640 input)
+    beside its bound, its plain version and the port's `InvertedResidual`
+    module on the same block (cuDNN convolutions), and their sums over the
+    ten launches of one forward."""
+    from tpucenterface_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+
+    shapes = []
+    for i, (x, args, skip) in block_inputs.items():
+        b, h, w, cin = x.shape
+        ce, cout = args[2].shape[-1], args[4].shape[-1]
+        mod = getattr(det.model.backbone, f"block_{i}")
+        x_nchw = x.permute(0, 3, 1, 2)
+        pos = b * h * w
+        # x read once, out written once, the weights and biases read once
+        nbytes = 2 * (pos * (cin + cout) + (cin * ce if args[0] is not None else 0) + 9 * ce + ce * cout
+                      + 2 * ce + cout)
+        products = 2 * pos * ((cin * ce if args[0] is not None else 0) + ce * cout)
+        bound_ms, bound_by = bound(nbytes, [(products, BF16_TC_OPS_PER_S), (2 * pos * 9 * ce, F32_OPS_PER_S)])
+        with torch.inference_mode():
+            shapes.append({
+                "block": i, "blocks_per_forward": MBCONV_BLOCKS_640[i], "x": [b, h, w, cin], "ce": ce, "cout": cout,
+                "skip": bool(skip),
+                "ms": cuda_ms(lambda: fused_mbconv(x, *args, skip=skip), iters=30),
+                "plain_ms": cuda_ms(lambda: fused_mbconv_plain(x, *args, skip=skip), iters=5, warmup=1),
+                "library_ms": cuda_ms(lambda: mod(x_nchw), iters=30),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+    total = {k: sum(sh[k] * sh["blocks_per_forward"] for sh in shapes)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = {w: sum(sh["bound_ms"] * sh["blocks_per_forward"] for sh in shapes if sh["bound_by"] == w)
+          for w in ("bytes", "operations")}
+    # the totals are those of one bs32@640 forward (ten launches); the bound is
+    # the sum of each launch's own, named after the larger part of it
+    return {**total, "bound_by": max(by, key=by.get), "shapes": shapes}
+
+
+def times_nms():
+    """The sigmoid + pseudo-NMS kernel at (32, 160, 160)."""
+    from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused, sigmoid_pseudo_nms_plain
+    from tpucenterface_torch.decode.reference import pseudo_nms
+
+    hm = 3.0 * torch.randn(32, 160, 160, generator=torch.Generator().manual_seed(5)).cuda()
+    cells = hm.numel()
+    # logits read once, scores written once; per cell nine sigmoids (4 each),
+    # eight maxima and the select
+    bound_ms, bound_by = bound(2 * cells * 4, [(cells * 45, F32_OPS_PER_S)])
+    return {
+        "ms": cuda_ms(lambda: sigmoid_pseudo_nms_fused(hm), iters=50),
+        "plain_ms": cuda_ms(lambda: sigmoid_pseudo_nms_plain(hm), iters=50),
+        "library_ms": cuda_ms(lambda: pseudo_nms(torch.sigmoid(hm)), iters=50),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def phase_times(det, det_fast, det_feats, block_inputs):
+    """End-to-end times (pre-sized and letterboxed bs32@640, single 640) of
+    the module forward and the pre-sized bs32@640 of the fast engine, where
+    the time goes at bs32@640 in each, and every kernel's times. The
+    launches made here are not main-path launches: the counts are put back."""
     from tpucenterface_torch.preprocess import normalize_images
 
-    before = decode_feats_fused.launches
+    before = read_launches()
     b640, _ = paint_batch(6, 32, (640, 640))
     lb_imgs, _, lb_hws = letterboxed_batch(8)
     one, _ = paint_batch(7, 1, (640, 640))
     batch = cuda_times(lambda: det.detect_batch(b640, score_thresh=0.05), iters=20)
+    fast = cuda_times(lambda: det_fast.detect_batch(b640, score_thresh=0.05), iters=20)
     lbox = cuda_times(lambda: det.detect_batch(lb_imgs, hws=lb_hws, score_thresh=0.05), iters=20)
     single = cuda_times(lambda: det.detect(one[0], score_thresh=0.05), iters=100)
+    fast_single = cuda_times(lambda: det_fast.detect(one[0], score_thresh=0.05), iters=100)
 
-    cfg = DecodeConfig(max_dets=200)
-    kernel_ms = cuda_ms(lambda: decode_feats_fused(det_feats, cfg), iters=50)
-    plain_ms = cuda_ms(lambda: decode_feats_fused_plain(det_feats, cfg), iters=50)
-    lib_cfg = DecodeConfig(max_dets=200, fast_topk=True)
-    library_ms = cuda_ms(lambda: decode_feats_with_idx(det_feats, lib_cfg), iters=50)
-
-    b, h, w, _ = det_feats["hm"].shape
-    k = cfg.max_dets
-    # least work: hm read once, wh/off read at the K peaks, boxes, scores
-    # and indices written once
-    nbytes = b * h * w * 4 + b * k * 4 * 4 + b * k * (4 + 1 + 1) * 4
-    # per cell: the sigmoid (4), 8 window maxima and the peak select, float32
-    ops = b * h * w * 13
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    ktimes = {
+        "decode_feats_fused": times_decode(det_feats),
+        "fused_mbconv": times_mbconv(det, block_inputs),
+        "sigmoid_pseudo_nms_fused": times_nms(),
+    }
 
     imgs = torch.from_numpy(b640).to("cuda")
     pp, raw = det.config.preprocess, det.config.model.stem_preprocess
     with torch.inference_mode():
         x = normalize_images(imgs, pp, raw=raw)
+        # module, fast, fast, module: the two forwards in turns on one card
+        fwd = [cuda_ms(lambda d=d: d._forward(x), iters=10) for d in (det, det_fast, det_fast, det)]
         stages = {
             "h2d_copy": cuda_ms(lambda: torch.from_numpy(b640).to("cuda"), iters=10),
             "preprocess": cuda_ms(lambda: normalize_images(imgs, pp, raw=raw), iters=10),
-            "forward": cuda_ms(lambda: det._forward(x), iters=10),
-            "decode": kernel_ms,
+            "forward": fwd[0],
+            "forward_runs_module_fast_fast_module": fwd,
+            "forward_fast_engine": fwd[1],
+            "decode": ktimes["decode_feats_fused"]["ms"],
         }
     prof = device_profile(lambda: det.detect_batch(b640, score_thresh=0.05))
-    decode_feats_fused.launches = before  # timing launches are not main-path launches
+    prof_fast = device_profile(lambda: det_fast.detect_batch(b640, score_thresh=0.05))
+    for name, fn in kernel_wrappers().items():
+        fn.launches = before[name]
 
-    med = float(np.median(batch))
+    def spread(ts):
+        return {"p50": float(np.median(ts)), "min": min(ts), "max": max(ts), "n": len(ts)}
+
     times = {
-        "detect_batch_bs32_640_ms": {"p50": med, "min": min(batch), "max": max(batch), "n": len(batch)},
-        "detect_batch_bs32_640_img_s": 32e3 / med,
-        "detect_batch_bs32_640_letterbox_ms": {"p50": float(np.median(lbox)), "min": min(lbox),
-                                               "max": max(lbox), "n": len(lbox)},
+        "detect_batch_bs32_640_ms": spread(batch),
+        "detect_batch_bs32_640_img_s": 32e3 / float(np.median(batch)),
+        "fast_engine_detect_batch_bs32_640_ms": spread(fast),
+        "fast_engine_detect_batch_bs32_640_img_s": 32e3 / float(np.median(fast)),
+        "detect_batch_bs32_640_letterbox_ms": spread(lbox),
         "detect_batch_bs32_640_letterbox_img_s": 32e3 / float(np.median(lbox)),
         "detect_single_640_ms": {"p50": float(np.median(single)), "p90": float(np.percentile(single, 90)),
                                  "n": len(single)},
+        "fast_engine_detect_single_640_ms": {"p50": float(np.median(fast_single)),
+                                             "p90": float(np.percentile(fast_single, 90)), "n": len(fast_single)},
         "stages_bs32_640_ms": stages,
         "profile_bs32_640": prof,
+        "profile_fast_engine_bs32_640": prof_fast,
     }
     log("[times] " + json.dumps(times))
-    return times, {
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    }
+    return times, ktimes
 
 
 def main() -> int:
     smi = phase_device()
-    from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig
+    import dataclasses
+
+    from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig, ModelConfig
+    from tpucenterface_torch.preprocess import normalize_images
 
     phase_build()
     cfg = DetectorConfig(decode=DecodeConfig(use_pallas=True))
+    fast_cfg = dataclasses.replace(cfg, model=ModelConfig(inference_engine="fast"))
     det = Detector.from_safetensors(FLAGSHIP, cfg)
+    det_fast = Detector.from_safetensors(FLAGSHIP, fast_cfg)
     feats_imgs, _ = paint_batch(0, 32, (640, 640))
     with torch.inference_mode():
-        x = torch.from_numpy(feats_imgs).to("cuda")
-        from tpucenterface_torch.preprocess import normalize_images
+        x = normalize_images(torch.from_numpy(feats_imgs).to("cuda"), det.config.preprocess, raw=True)
+        det_feats = det._forward(x)
+    block_inputs = mbconv_block_inputs(det, x)
+    errs = {
+        "decode_feats_fused": phase_kernels_decode(det_feats),
+        "fused_mbconv": max(phase_kernels_mbconv(block_inputs).values()),
+        "sigmoid_pseudo_nms_fused": phase_kernels_nms(),
+    }
 
-        det_feats = det._forward(normalize_images(x, det.config.preprocess, raw=True))
-    worst = phase_kernels(det_feats)
+    at320 = dict(decode=cfg.decode, default_size=320)
+    det320 = Detector.from_safetensors(FLAGSHIP, DetectorConfig(**at320))
+    det_cpu = Detector.from_safetensors(FLAGSHIP, DetectorConfig(**at320), device="cpu")
+    det_fast320 = Detector.from_safetensors(FLAGSHIP, DetectorConfig(model=fast_cfg.model, **at320))
+    # each path is driven with the counts set to 0 just before it and read
+    # just after; a kernel's launches are those of all the paths
+    module_launches, d640 = phase_main(det, det320, det_cpu)
+    det_f32 = Detector.from_safetensors(
+        FLAGSHIP, dataclasses.replace(cfg, model=ModelConfig(compute_dtype="float32")))
+    paths = [module_launches, phase_main_fast(det_fast, det_fast320, det_f32, d640, x, det_feats),
+             phase_main_landmarks()]
+    launches = {name: sum(p[name] for p in paths) for name in errs}
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"[main] a kernel of the paths was never launched: {launches}")
+    times, ktimes = phase_times(det, det_fast, det_feats, block_inputs)
 
-    det320 = Detector.from_safetensors(FLAGSHIP, DetectorConfig(decode=cfg.decode, default_size=320))
-    det_cpu = Detector.from_safetensors(FLAGSHIP, DetectorConfig(decode=cfg.decode, default_size=320), device="cpu")
-    launches = phase_main(det, det320, det_cpu)
-    times, ktimes = phase_times(det, det_feats)
-
+    sources = {
+        "decode_feats_fused": ("tpucenterface_torch/csrc/decode.cu", "tpucenterface/decode/pallas_decode.py:134"),
+        "fused_mbconv": ("tpucenterface_torch/csrc/mbconv.cu", "tpucenterface/ops/fused_mbconv.py:150"),
+        "sigmoid_pseudo_nms_fused": ("tpucenterface_torch/csrc/nms.cu", "tpucenterface/decode/pallas_nms.py:45"),
+    }
     record = {
         "kernels": [
             {
-                "name": "decode_feats_fused",
+                "name": name,
                 "route": "cuda",
-                "source": "tpucenterface_torch/csrc/decode.cu",
-                "replaces": "tpucenterface/decode/pallas_decode.py:134",
-                "launches": launches["decode_feats_fused"],
-                "max_abs_err": worst,
-                **ktimes,
+                "source": source,
+                "replaces": replaces,
+                "launches": launches[name],
+                "max_abs_err": errs[name],
+                **ktimes[name],
             }
+            for name, (source, replaces) in sources.items()
         ]
     }
     log(smi)

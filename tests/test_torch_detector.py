@@ -5,6 +5,10 @@ Flagship weights (artifacts/flagship.safetensors) at the flagship's own
 `use_pallas=True` (the fused decode; on the CPU its plain version); the JAX
 Detector on the CPU runs its reference decode with `fast_topk=False`, whose
 ties follow the same lowest-index rule.
+
+Also here: the fast engine (`inference_engine="fast"`) against the module
+forward, the landmark decode route with the fused dense stage, and
+`reload_weights` on a fast-engine detector.
 """
 
 import os
@@ -82,6 +86,8 @@ def scenes():
 def test_import_leaves_jax_out():
     code = (
         "import sys; import tpucenterface_torch; "
+        "import tpucenterface_torch.ops.fused_mbconv, tpucenterface_torch.model.fast_forward, "
+        "tpucenterface_torch.decode.fused_nms, tpucenterface_torch.kernels.build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -147,6 +153,111 @@ def test_flagship_detect_single_and_identity(flagship_vars):
         assert (a.boxes >= 0).all()
         assert (a.boxes[:, 0::2] <= img.shape[1]).all()
         assert (a.boxes[:, 1::2] <= img.shape[0]).all()
+
+
+def _fast(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, inference_engine="fast"))
+
+
+def test_fast_engine_matches_module_forward(scenes):
+    """`inference_engine="fast"` on the CPU (the fused blocks take their
+    plain version) against the module forward, flagship at 320, both
+    bfloat16: the bound of the bfloat16 port-against-JAX test above."""
+    port_cfg, _ = _configs("bfloat16")
+    base = T.Detector.from_safetensors(ARTIFACT, port_cfg, device="cpu")
+    fast = T.Detector.from_safetensors(ARTIFACT, _fast(port_cfg), device="cpu")
+    assert fast._engine is not None and base._engine is None
+    assert fast._engine.kernel_blocks(SIZE) == [0, 2, 4, 5]
+    assert fast.model is fast._engine.net
+    bd = base.detect_batch(scenes, score_thresh=THRESH)
+    fd = fast.detect_batch(scenes, score_thresh=THRESH)
+    for a, b in zip(fd, bd):
+        assert (a.scores >= 0.1).sum() > 0
+        match_detections(a, b, box_atol=2.0, score_atol=0.03, firm=0.1)
+    assert any(len(a.scores) != len(b.scores) or (a.scores != b.scores).any() for a, b in zip(fd, bd))
+
+
+def test_unknown_engine_raises():
+    cfg = T.DetectorConfig(model=T.ModelConfig(inference_engine="planar"))
+    with pytest.raises(NotImplementedError, match="planar"):
+        T.Detector(config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("fast_topk", [True, False])
+def test_landmark_route_bit_equal_with_fused_dense_stage(fast_topk):
+    """A landmark model (random weights from a seed): `use_pallas=True` runs
+    the dense stage through `sigmoid_pseudo_nms_fused` and returns exactly
+    what `use_pallas=False` returns."""
+    model = T.ModelConfig(with_landmarks=True)
+    dets = [
+        T.Detector(
+            config=T.DetectorConfig(
+                model=model, decode=T.DecodeConfig(use_pallas=flag, fast_topk=fast_topk), default_size=SIZE
+            ),
+            device="cpu",
+            seed=3,
+        )
+        for flag in (True, False)
+    ]
+    imgs = _scenes(2, seed=9, hw=(SIZE, SIZE))
+    on, off = (d.detect_batch(imgs, score_thresh=0.0) for d in dets)
+    for a, b in zip(on, off):
+        assert a.landmarks is not None and a.landmarks.shape == (len(a.scores), 5, 2)
+        assert a.boxes.tobytes() == b.boxes.tobytes()
+        assert a.scores.tobytes() == b.scores.tobytes()
+        assert a.landmarks.tobytes() == b.landmarks.tobytes()
+
+
+def test_landmark_route_goes_through_the_fused_dense_stage(monkeypatch):
+    import tpucenterface_torch.detector as D
+
+    calls = []
+    real = D.sigmoid_pseudo_nms_fused
+    monkeypatch.setattr(D, "sigmoid_pseudo_nms_fused", lambda hm: calls.append(tuple(hm.shape)) or real(hm))
+    for landmarks, use_pallas, want in ((True, True, 1), (True, False, 0), (False, True, 0)):
+        calls.clear()
+        cfg = T.DetectorConfig(
+            model=T.ModelConfig(with_landmarks=landmarks),
+            decode=T.DecodeConfig(use_pallas=use_pallas),
+            default_size=128,
+        )
+        T.Detector(config=cfg, device="cpu", seed=1).detect(np.zeros((128, 128, 3), np.uint8))
+        assert len(calls) == want, (landmarks, use_pallas, calls)
+
+
+def test_reload_weights_rebuilds_the_fast_engine(flagship_vars, scenes):
+    """The fast engine holds its own copies of the block weights: after
+    `reload_weights` it must run the new ones (a stale engine would return
+    the old detections), and `weights_version` is bumped."""
+    port_cfg, _ = _configs("bfloat16")
+    cfg = _fast(port_cfg)
+    _, other = T.model.centernet.init_model(cfg.model, seed=5)
+    det = T.Detector(variables=other, config=cfg, device="cpu")
+    assert det.weights_version == 0
+    before = det.detect_batch(scenes, score_thresh=0.0)
+    old_engine = det._engine
+    det.reload_weights(safetensors_path=ARTIFACT)
+    assert det.weights_version == 1
+    assert det._engine is not old_engine and det.model is det._engine.net
+    after = det.detect_batch(scenes, score_thresh=0.0)
+    fresh = T.Detector.from_safetensors(ARTIFACT, cfg, device="cpu").detect_batch(scenes, score_thresh=0.0)
+    for a, b, f in zip(after, before, fresh):
+        assert a.scores.tobytes() == f.scores.tobytes() and a.boxes.tobytes() == f.boxes.tobytes()
+        assert not np.array_equal(a.scores, b.scores)
+        assert (a.scores >= 0.3).sum() > 0
+    # the block weights the engine runs are the reloaded ones
+    w2 = det._engine.kernel_args[2][4].float().numpy()
+    want = det.variables["params"]["backbone"]["block_2"]["project"]["conv"]["kernel"][0, 0]
+    np.testing.assert_array_equal(w2, torch.from_numpy(np.asarray(want)).bfloat16().float().numpy())
+    det.reload_weights(variables=other)
+    assert det.weights_version == 2
+    again = det.detect_batch(scenes, score_thresh=0.0)
+    for a, b in zip(again, before):
+        assert a.scores.tobytes() == b.scores.tobytes()
+    with pytest.raises(ValueError, match="pass variables"):
+        det.reload_weights()
 
 
 @pytest.mark.slow

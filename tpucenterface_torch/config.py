@@ -54,8 +54,9 @@ class ModelConfig:
     # Input normalization baked into the folded stem conv: the model is fed
     # mean-centered raw pixels `u - 255*mean`.
     stem_preprocess: bool = False
-    # Forward implementation; the port has only the module forward ('flax'
-    # names it in the JAX package and is kept so configs carry across).
+    # Forward implementation: 'flax' is the module forward (the name is the
+    # JAX package's, kept so configs carry across); 'fast' is
+    # model.fast_forward.FastEngine with the fused MBConv kernel.
     inference_engine: str = "flax"
 
     def width(self, c: int) -> int:
@@ -108,6 +109,15 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"not a torch dtype: {name}")
     return dt
+
+
+def resolve_device(device=None) -> torch.device:
+    """The GPU unless `device` names another; raises when the GPU is asked
+    for and there is none (nothing falls back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
 
 
 # Square model input sizes of the resolution buckets.

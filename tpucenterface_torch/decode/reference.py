@@ -89,14 +89,19 @@ def boxes_from_cells(
 
 
 def decode_feats_with_idx(
-    feats: Dict[str, torch.Tensor], cfg: DecodeConfig
+    feats: Dict[str, torch.Tensor], cfg: DecodeConfig, peaks: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Head maps -> (boxes (B,K,4) in model-input pixels, scores (B,K),
-    flat peak indices (B,K)); K = min(max_dets, H*W)."""
+    flat peak indices (B,K)); K = min(max_dets, H*W). `peaks` (B,H,W) is the
+    peak-masked score map where the caller has computed it already (the
+    fused dense stage, `decode.fused_nms`)."""
     hm = feats["hm"]
     b, h, w, _ = hm.shape
     k = min(cfg.max_dets, h * w)
-    peaks = pseudo_nms(torch.sigmoid(hm[..., 0]))
+    if peaks is None:
+        peaks = pseudo_nms(torch.sigmoid(hm[..., 0]))
+    elif peaks.shape != (b, h, w):
+        raise ValueError(f"peaks must be {(b, h, w)}, got {tuple(peaks.shape)}")
     flat = peaks.reshape(b, h * w)
     if cfg.fast_topk:
         top_scores, top_idx = topk_2stage(flat, k)

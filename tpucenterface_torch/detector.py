@@ -2,7 +2,8 @@
 
 Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
 `from_safetensors`, `_decode`, `_forward`, `results_to_detections`,
-`_identity_for`, `detect`, `detect_batch`, `warmup`):
+`_identity_for`, `reload_weights`, `weights_version`, `detect`,
+`detect_batch`, `warmup`):
 
     host:   zero-pad the frame to a shape bucket, copy to the device
     device: letterbox+normalize -> backbone -> neck -> heads -> decode
@@ -14,7 +15,16 @@ into the stem as the JAX Detector does. Everything runs eagerly. The device is
 the GPU unless the caller passes another; asking for the GPU on a machine
 without one raises.
 
-Not ported yet: `quantize`, `reload_weights`, the flip-TTA batch program,
+Two switches of the config choose kernels of the port:
+- `ModelConfig.inference_engine == "fast"` runs the forward through
+  `model.fast_forward.FastEngine` with the fused MBConv kernel
+  (`ops.fused_mbconv`); the default `"flax"` is the module forward.
+- `DecodeConfig.use_pallas` takes the fused decode kernel
+  (`decode.fused_decode`) for a model without a landmark head, and the fused
+  sigmoid + pseudo-NMS kernel (`decode.fused_nms`) ahead of the reference
+  top-K and gathers for a model with one.
+
+Not ported yet: `quantize`, `from_torch_pth`, the flip-TTA batch program,
 the planar engine and the space-to-depth stem.
 """
 
@@ -26,21 +36,22 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpucenterface_torch.config import DetectorConfig
+from tpucenterface_torch.config import DetectorConfig, resolve_device
 from tpucenterface_torch.decode.fused_decode import decode_feats_fused
+from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused
 from tpucenterface_torch.decode.reference import (
     boxes_to_original,
     decode_feats_with_idx,
     decode_landmarks,
     landmarks_to_original,
 )
-from tpucenterface_torch.model.centernet import CenterFaceNet, init_model
+from tpucenterface_torch.model.centernet import init_model, load_network
+from tpucenterface_torch.model.fast_forward import FastEngine
 from tpucenterface_torch.preprocess import (
     letterbox_normalize_batch,
     normalize_images,
     pad_to_bucket,
 )
-from tpucenterface_torch.weights.convert import state_dict_from_variables
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_safetensors
 
@@ -51,15 +62,6 @@ class Detections(NamedTuple):
     boxes: np.ndarray              # (N, 4) [x1,y1,x2,y2] original-image px
     scores: np.ndarray             # (N,) float32, descending
     landmarks: Optional[np.ndarray] = None  # (N, 5, 2) or None
-
-
-def resolve_device(device=None) -> torch.device:
-    """The GPU unless `device` names another; raises when the GPU is asked
-    for and there is none (nothing falls back to the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class Detector:
@@ -74,6 +76,7 @@ class Detector:
         seed: int = 0,
     ):
         self.device = resolve_device(device)
+        self._init_config, self._init_fold_bn = config, fold_bn
         self.config = config
         if variables is None:
             _, variables = init_model(config.model, seed=seed)
@@ -96,10 +99,22 @@ class Detector:
                 ),
             )
         self.variables = variables
-        self.model = CenterFaceNet(self.config.model)
-        self.model.load_state_dict(state_dict_from_variables(variables), strict=True)
-        self.model.requires_grad_(False).eval().cast_convs_()
-        self.model.to(device=self.device, memory_format=torch.channels_last)
+        engine = self.config.model.inference_engine
+        if engine not in ("flax", "fast"):
+            raise NotImplementedError(f"the port has no '{engine}' inference engine")
+        # The fast engine holds its own copies of the block weights beside the
+        # network it builds; `model` is that network, so there is one of it.
+        self._engine = None
+        if engine == "fast":  # needs a folded model; FastEngine raises otherwise
+            self._engine = FastEngine(
+                variables, self.config.model, use_mbconv_kernel=True, device=self.device
+            )
+            self.model = self._engine.net
+        else:
+            self.model = load_network(variables, self.config.model, self.device)
+        # bumped on every weight swap (reload_weights); callers that cache
+        # anything derived from the weights key on it
+        self.weights_version = 0
 
     @classmethod
     def from_safetensors(
@@ -107,23 +122,53 @@ class Detector:
     ) -> "Detector":
         return cls(variables=load_safetensors(path), config=config, device=device)
 
+    def reload_weights(
+        self,
+        variables: Optional[Dict[str, Any]] = None,
+        safetensors_path: Optional[str] = None,
+    ) -> None:
+        """Swap the model weights. The new weights go through the same
+        construction as `__init__` (BatchNorm fold, head fusion, engine
+        build), so the fast engine's own block weights are rebuilt with the
+        network. Not synchronised with a detect call running in another
+        thread."""
+        if safetensors_path is not None:
+            variables = load_safetensors(safetensors_path)
+        elif variables is None:
+            raise ValueError("pass variables or safetensors_path")
+        fresh = Detector(
+            variables=variables,
+            config=self._init_config,
+            device=self.device,
+            fold_bn=self._init_fold_bn,
+        )
+        self.variables, self.config = fresh.variables, fresh.config
+        self.model, self._engine = fresh.model, fresh._engine
+        self.weights_version += 1
+
     # ------------------------------------------------------------------ #
     # the device path
     # ------------------------------------------------------------------ #
 
     def _decode(self, feats: Dict[str, torch.Tensor]):
-        """-> (boxes, scores, landmarks-or-None), all in model-input pixels.
-        The fused decode kernel runs when `use_pallas` is set and the model
-        has no landmark head; K = min(max_dets, H*W) on both routes."""
+        """-> (boxes, scores, landmarks-or-None), all in model-input pixels;
+        K = min(max_dets, H*W) on every route. With `use_pallas`, a model
+        without a landmark head takes the fused decode kernel, and one with a
+        landmark head takes the fused sigmoid + pseudo-NMS kernel for the
+        dense stage ahead of the reference top-K and gathers (bit-equal to
+        the reference decode)."""
         cfg = self.config.decode
         if cfg.use_pallas and "lm" not in feats:
             boxes, scores, _ = decode_feats_fused(feats, cfg)
             return boxes, scores, None
-        boxes, scores, idx = decode_feats_with_idx(feats, cfg)
+        peaks = sigmoid_pseudo_nms_fused(feats["hm"][..., 0]) if cfg.use_pallas else None
+        boxes, scores, idx = decode_feats_with_idx(feats, cfg, peaks=peaks)
         lm = decode_landmarks(feats, idx, cfg) if "lm" in feats else None
         return boxes, scores, lm
 
     def _forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self._engine is not None:
+            return self._engine(x)
         return self.model(x)
 
     def _run(self, images: np.ndarray, hws: np.ndarray, size: int, identity: bool):

@@ -19,7 +19,10 @@ from tpucenterface_torch.model.backbone import MobileNetV2Backbone
 from tpucenterface_torch.model.blocks import ConvBN
 from tpucenterface_torch.model.heads import CenterNetHeads, Head
 from tpucenterface_torch.model.neck import FPNLiteNeck
-from tpucenterface_torch.weights.convert import variables_from_state_dict
+from tpucenterface_torch.weights.convert import (
+    state_dict_from_variables,
+    variables_from_state_dict,
+)
 
 
 class CenterFaceNet(nn.Module):
@@ -43,6 +46,16 @@ class CenterFaceNet(nn.Module):
             if isinstance(m, (ConvBN, Head)) and hasattr(m, "conv"):
                 m.conv.to(m.dtype)
         return self
+
+
+def load_network(variables: Dict[str, Any], cfg: ModelConfig, device: torch.device) -> CenterFaceNet:
+    """The inference network of JAX-layout `variables` on `device`: eval mode,
+    no gradients, compute-dtype convolutions stored in the compute dtype,
+    channels_last."""
+    net = CenterFaceNet(cfg)
+    net.load_state_dict(state_dict_from_variables(variables), strict=True)
+    net.requires_grad_(False).eval().cast_convs_()
+    return net.to(device=device, memory_format=torch.channels_last)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0) -> Tuple[CenterFaceNet, Dict[str, Any]]:

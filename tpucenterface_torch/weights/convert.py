@@ -12,11 +12,15 @@ names the port's module attribute path one for one:
 HWIO (kh, kw, I, O) becomes OIHW (O, I, kh, kw); a depthwise (3, 3, 1, C)
 kernel becomes (C, 1, 3, 3); the fused heads' block-diagonal 1x1 out kernel is
 carried like any other kernel. Values are copied exactly.
+
+`mbconv_args_from_block` cuts one folded inverted-residual block into the
+arguments of `ops.fused_mbconv` (`tpucenterface/model/fast_forward.py:129-147`
+without its channel padding).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,3 +82,31 @@ def variables_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, An
             path = ["params", *mods, leaf]
         flat["/".join(path)] = np.ascontiguousarray(w)
     return unflatten(flat)
+
+
+MBConvArgs = Tuple[
+    Optional[np.ndarray], Optional[np.ndarray], np.ndarray, np.ndarray, np.ndarray, np.ndarray
+]
+
+
+def mbconv_args_from_block(block: Mapping[str, Any]) -> MBConvArgs:
+    """One folded flax block ({'expand'?, 'depthwise', 'project'} ->
+    'conv' -> 'kernel' HWIO, 'bias') -> (w1 (Cin, Ce), b1, wd (3, 3, Ce), bd,
+    w2 (Ce, Cout), b2) as float32 numpy; w1 and b1 are None when the block
+    has no expand. A 1x1 HWIO kernel (1, 1, I, O) is already input-major, so
+    it is sliced and not transposed."""
+
+    def conv(name):
+        node = block[name]["conv"]
+        if "bias" not in node:
+            raise ValueError(f"block scope '{name}' has no folded bias; fold BatchNorm first")
+        return np.asarray(node["kernel"], np.float32), np.asarray(node["bias"], np.float32)
+
+    w1 = b1 = None
+    if "expand" in block:
+        k, b1 = conv("expand")
+        w1 = np.ascontiguousarray(k[0, 0])
+    k, bd = conv("depthwise")
+    wd = np.ascontiguousarray(k[:, :, 0, :])
+    k, b2 = conv("project")
+    return w1, b1, wd, bd, np.ascontiguousarray(k[0, 0]), b2
