@@ -6,11 +6,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
-   `csrc/mbconv.cu`, `csrc/nms.cu`) with nvcc into build/kernels/, one nvcc
-   per source, all started together;
+   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`) with nvcc into
+   build/kernels/, one nvcc per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
-   tie-heavy inputs;
+   tie-heavy inputs; the one-block planar kernel, which no engine calls, is
+   held to its plain version here and timed in phase 5, and is on no path;
 4. main paths, each with every launch counter set to 0 just before and read
    just after:
    a. `Detector.detect_batch` / `detect` on the flagship weights
@@ -23,9 +24,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    c. a landmark model (random weights from a seed) at batch 4 and 320x320,
       whose decode runs the fused sigmoid + pseudo-NMS kernel, bit-equal to
       the reference decode;
+   d. the flagship weights with `inference_engine="planar"` (PlanarEngine and
+      the planar chain kernel: three launches a forward at 640, four at 320)
+      at batch 32 and 640x640 against the module forward on the same card,
+      and at 320 against the port's CPU run;
 5. times with CUDA events (median after warm-up), and torch.profiler
-   summaries of one bs32@640 batch of the module forward and of the fast
-   engine (device busy share, top device ops).
+   summaries of one bs32@640 batch of the module forward, of the fast engine
+   and of the planar engine (device busy share, top device ops).
 
 The images are procedural faces painted with numpy from a seed; the run
 checks that the detector finds them. The last two lines are the
@@ -76,6 +81,29 @@ FAST_MATCH_SHARE, FAST_F32_SLACK, FAST_F32_HM_RATIO = 0.97, 2, 1.25
 # is at most 2^-7 of the value; the absolute term covers a flipped
 # intermediate carried into a small output. At most 1% of the values may differ.
 MBCONV_ATOL, MBCONV_RTOL, MBCONV_MAX_DIFFERING = 0.04, 2.0 ** -6, 0.01
+# The planar kernels against their plain versions: the same cast points, the
+# depthwise in the same order with the same roundings, so, as for the MBConv
+# kernel, only the tensor cores' sum order differs: one bfloat16 step on at
+# most 1% of the values, for one block (B4a is summed and written in float32,
+# where the step is that of an intermediate carried to the output). A chain is
+# held to that bound block by block: the kernel's chain of k blocks against the
+# plain block applied to the kernel's own chain of k-1. End to end a flipped
+# value is carried on and amplified by the following blocks (a six-block chain
+# on random weights differs on 45% of its values by up to three steps while
+# every single block is within one), so the whole chain against the whole
+# plain chain is held to one step per block, atol and rtol times the chain's
+# length, on at most PLANAR_CHAIN_MAX_DIFFERING of the values (seen: 0.45 on
+# random weights, 0.11 on the flagship's). The block-by-block comparison is
+# the one that tells a wrong kernel; the end-to-end one bounds what is carried.
+PLANAR_ATOL, PLANAR_RTOL, PLANAR_MAX_DIFFERING = MBCONV_ATOL, MBCONV_RTOL, MBCONV_MAX_DIFFERING
+PLANAR_CHAIN_MAX_DIFFERING = 0.5
+# The blocks of a 640 input at whose shapes the one-block kernel (B4a) is held
+# to its plain version and timed besides each chain's first block: the two
+# stride-1 blocks that no chain takes.
+PLANAR_SINGLE_BLOCKS = [(0, 1), (2, 1)]
+# The chains the planar engine runs at the Detector's PLANAR_CHAIN_RES, as
+# (first block, number of blocks): three at a 640 input, four at 320.
+PLANAR_CHAINS = {640: [(4, 2), (7, 6), (14, 3)], 320: [(2, 1), (4, 2), (7, 6), (14, 3)]}
 # The blocks of the default model with distinct kernel shapes at 640, and how
 # many blocks of a forward share each shape (FastEngine.kernel_blocks(640)).
 MBCONV_BLOCKS_640 = {0: 1, 2: 1, 4: 2, 7: 3, 10: 1, 11: 2}
@@ -255,7 +283,7 @@ def phase_build():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("decode", "mbconv", "nms")
+    names = ("decode", "mbconv", "nms", "planar")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed, names))
@@ -427,6 +455,172 @@ def phase_kernels_nms():
     return worst
 
 
+def planar_chain_inputs(det, x, size, runs):
+    """[{first, count, x (planar bf16, garbage in the pad columns), H, W,
+    blocks, modules, size}] for `runs` [(first block, number of blocks)]: the
+    activations the flagship network gives each run on the normalized batch
+    `x` (a `size` input), the run's own weights as a chain's block list, and
+    the port's modules of the same blocks."""
+    from tpucenterface_torch.ops.planar_mbconv import padded_width, planar_from_nhwc
+    from tpucenterface_torch.weights.convert import chain_blocks_from_run
+
+    bb = det.model.backbone
+    params = det.variables["params"]["backbone"]
+    starts = dict(runs)
+    gen = torch.Generator().manual_seed(size)
+    out = []
+    with torch.inference_mode():
+        y = bb.stem(x.permute(0, 3, 1, 2).to(bb.dtype))
+        for i in range(len(bb.plan)):
+            if i in starts:
+                b, c, h, w = y.shape
+                wp = padded_width(h, w)
+                yp = planar_from_nhwc(y.permute(0, 2, 3, 1)).reshape(b, c, h, wp).clone()
+                # finite garbage where the contract allows anything finite
+                yp[..., w:] = (40.0 * torch.randn(b, c, h, wp - w, generator=gen)).to(y.device, y.dtype)
+                blocks = chain_blocks_from_run([params[f"block_{j}"] for j in range(i, i + starts[i])], c)
+                blocks = [{k: torch.from_numpy(v).to(y.device) if isinstance(v, np.ndarray) else v
+                           for k, v in blk.items()} for blk in blocks]
+                out.append({"first": i, "count": starts[i], "x": yp.reshape(b, c, h * wp).contiguous(), "H": h, "W": w,
+                            "blocks": blocks, "modules": [getattr(bb, f"block_{j}") for j in range(i, i + starts[i])],
+                            "size": size})
+            y = getattr(bb, f"block_{i}")(y)
+    if len(out) != len(starts):
+        raise AssertionError(f"[kernels] planar: {len(out)} chains found at {size}, wanted {len(starts)}")
+    return out
+
+
+def _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=None):
+    """(planar bf16 input with garbage pad columns, blocks) on random weights;
+    `spec` lists (Ce, Cout) per block: no expand where Ce equals the block's
+    input width, a skip where Cout does."""
+    from tpucenterface_torch.ops.planar_mbconv import padded_width
+
+    def rnd(*shape, scale, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    wp = padded_width(h, w)
+    x = rnd(b, c0, h, wp, scale=0.5)
+    x[..., w:] *= 80.0
+    blocks, c = [], c0
+    for i, (ce, cout) in enumerate(spec):
+        expand = ce != c
+        blocks.append({
+            "w1": rnd(c, ce, scale=0.3) if expand else None,
+            "b1": rnd(ce, scale=0.1, shift=3.0 if i == b1_shift_at else 0.0) if expand else None,
+            "wd": rnd(3, 3, ce, scale=0.3), "bd": rnd(ce, scale=0.1),
+            "w2": rnd(ce, cout, scale=2 * ce ** -0.5), "b2": rnd(cout, scale=0.1), "skip": c == cout,
+        })
+        c = cout
+    return x.reshape(b, c0, h * wp).to(torch.bfloat16).contiguous(), blocks
+
+
+_BLOCK_KEYS = ("w1", "b1", "wd", "bd", "w2", "b2")
+
+
+def _planar_compare(what, got, want, h, w, steps=1, max_differing=PLANAR_MAX_DIFFERING):
+    """Real columns of two planar tensors within `steps` bfloat16 steps
+    (PLANAR_ATOL, PLANAR_RTOL times `steps`), pad columns of `got` zero.
+    Returns (max |err|, share of values differing)."""
+    from tpucenterface_torch.ops.planar_mbconv import nhwc_from_planar, padded_width
+
+    g, r = nhwc_from_planar(got, h, w).float(), nhwc_from_planar(want, h, w).float()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"[kernels] {what}: non-finite output")
+    if (got.reshape(got.shape[0], got.shape[1], h, padded_width(h, w))[..., w:] != 0).any():
+        raise AssertionError(f"[kernels] {what}: pad columns of the output are not zero")
+    diff = (g - r).abs()
+    err, differing = diff.max().item(), (diff > 0).float().mean().item()
+    over = (diff > steps * (PLANAR_ATOL + PLANAR_RTOL * r.abs())).sum().item()
+    if over or differing > max_differing:
+        raise AssertionError(f"[kernels] {what}: {over} values over {steps} x (atol {PLANAR_ATOL} + rtol "
+                             f"{PLANAR_RTOL:.4f}), {differing:.3g} of the values differing")
+    return err, differing
+
+
+def _check_planar_chain(what, x, blocks, h, w, relu6=True):
+    """planar_mbconv_chain against its plain version: block by block (the
+    kernel's chain of k blocks against the plain block on the kernel's chain
+    of k-1) and end to end; one launch a call. Returns the end-to-end error."""
+    from tpucenterface_torch.ops.planar_mbconv import planar_mbconv_chain, planar_mbconv_chain_plain
+
+    n = len(blocks)
+    before = planar_mbconv_chain.launches
+    got = planar_mbconv_chain(x, blocks, H=h, W=w, relu6=relu6)
+    torch.cuda.synchronize()
+    if planar_mbconv_chain.launches != before + 1:
+        raise AssertionError(f"[kernels] {what}: {planar_mbconv_chain.launches - before} launches for one call")
+    want = planar_mbconv_chain_plain(x, blocks, H=h, W=w, relu6=relu6)
+    err, differing = _planar_compare(f"planar chain {what}", got, want, h, w, steps=n,
+                                     max_differing=PLANAR_MAX_DIFFERING if n == 1 else PLANAR_CHAIN_MAX_DIFFERING)
+    worst_step, prev = (0.0, 0.0), x
+    for k in range(1, n + 1):
+        cur = got if k == n else planar_mbconv_chain(x, blocks[:k], H=h, W=w, relu6=relu6)
+        ref = planar_mbconv_chain_plain(prev, blocks[k - 1:k], H=h, W=w, relu6=relu6)
+        worst_step = max(worst_step, _planar_compare(f"planar chain {what}, block {k} of {n}", cur, ref, h, w))
+        prev = cur
+    widths = "->".join([str(x.shape[1])] + [str(blk["w2"].shape[-1]) for blk in blocks])
+    log(f"[kernels] planar chain {what}: x {tuple(x.shape)} {h}x{w}, {n} blocks {widths}: block by block max |err| "
+        f"{worst_step[0]:.3g}, differing {worst_step[1]:.2e} of values; end to end max |err| {err:.3g} "
+        f"(max |out| {want.float().abs().max().item():.3g}), differing {differing:.2e}")
+    return err
+
+
+def _check_planar_block(what, x, blk, h, w, relu6=True):
+    """planar_mbconv against its plain version. Returns the error."""
+    from tpucenterface_torch.ops.planar_mbconv import pack_planar_blocks, planar_mbconv, planar_mbconv_plain
+
+    args = [blk[k] for k in _BLOCK_KEYS]
+    got = planar_mbconv(x, *args, H=h, W=w, skip=blk["skip"], relu6=relu6)
+    torch.cuda.synchronize()
+    want = planar_mbconv_plain(x, *args, H=h, W=w, skip=blk["skip"], relu6=relu6)
+    err, differing = _planar_compare(f"planar block {what}", got, want, h, w)
+    packed = pack_planar_blocks([blk], x.shape[1], x.device)
+    if not torch.equal(planar_mbconv(x, packed, H=h, W=w, relu6=relu6), got):
+        raise AssertionError(f"[kernels] planar block {what}: packed and unpacked weights give different results")
+    log(f"[kernels] planar block {what}: x {tuple(x.shape)} {h}x{w} {x.shape[1]}->{blk['wd'].shape[-1]}->"
+        f"{blk['w2'].shape[-1]} skip={blk['skip']}: max |err| {err:.3g} (max |out| "
+        f"{want.float().abs().max().item():.3g}), differing {differing:.2e} of values")
+    return err
+
+
+def phase_kernels_planar(chains, singles):
+    """planar_mbconv (B4a) and planar_mbconv_chain (B4b) against their plain
+    versions on the card, at batch 32 on the flagship's own activations and
+    weights (garbage in the pad columns): B4b on every chain of the planar
+    engine at 640 and 320 (`chains`), B4a, which is on no path, on blocks 0
+    and 2 of a 640 input (`singles`) and on each chain's first block; and random cases: no expand,
+    b1 = +3, H != W, odd channel counts, a chain of one, batch 1, ReLU.
+    Returns ({case: max |err|} of B4a, of B4b)."""
+    dev = chains[0]["x"].device
+    one, many = {}, {}
+    for ch in chains:
+        what = f"blocks {ch['first']}-{ch['first'] + ch['count'] - 1} bs32@{ch['size']}"
+        many[what] = _check_planar_chain(what, ch["x"], ch["blocks"], ch["H"], ch["W"])
+    for ch in singles + chains:
+        what = f"block {ch['first']} bs32@{ch['size']}"
+        one[what] = _check_planar_block(what, ch["x"], ch["blocks"][0], ch["H"], ch["W"])
+    gen = torch.Generator().manual_seed(2468)
+    for what, b, h, w, c0, spec, shift, relu6 in (
+        ("no expand first, b1=+3, 2x23x37", 2, 23, 37, 32, [(32, 16), (96, 24), (144, 24), (144, 40)], 1, True),
+        ("no expand with skip, 1x5x7", 1, 5, 7, 8, [(8, 8), (48, 8)], None, True),
+        ("chain of one, batch 1, 10x10", 1, 10, 10, 160, [(960, 160)], None, True),
+        ("odd widths, ReLU, 3x19x33", 3, 19, 33, 12, [(40, 12), (40, 20), (20, 20)], 0, False),
+        ("six blocks, batch 1, 40x24", 1, 40, 24, 64, [(384, 64)] * 3 + [(384, 96), (576, 96), (576, 96)], 2, True),
+    ):
+        x, blocks = _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=shift)
+        many[what] = _check_planar_chain(what, x, blocks, h, w, relu6=relu6)
+    for what, b, h, w, c0, spec, shift, relu6 in (
+        ("no expand 2x23x37", 2, 23, 37, 32, [(32, 16)], None, True),
+        ("b1=+3, 2x8x16", 2, 8, 16, 16, [(96, 24)], 0, True),
+        ("odd widths, ReLU, batch 1, 19x33", 1, 19, 33, 12, [(40, 12)], None, False),
+        ("160->960->320, 2x20x20", 2, 20, 20, 160, [(960, 320)], None, True),
+    ):
+        x, blocks = _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=shift)
+        one[what] = _check_planar_block(what, x, blocks[0], h, w, relu6=relu6)
+    return one, many
+
+
 def count_unmatched(a_dets, b_dets):
     """(detections of either side scoring >= BF16_FIRM, those of them with no
     partner on the other side within BF16_BOX_ATOL px and BF16_SCORE_ATOL)."""
@@ -470,9 +664,11 @@ def kernel_wrappers():
     from tpucenterface_torch.decode.fused_decode import decode_feats_fused
     from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused
     from tpucenterface_torch.ops.fused_mbconv import fused_mbconv
+    from tpucenterface_torch.ops.planar_mbconv import planar_mbconv, planar_mbconv_chain
 
     return {"decode_feats_fused": decode_feats_fused, "fused_mbconv": fused_mbconv,
-            "sigmoid_pseudo_nms_fused": sigmoid_pseudo_nms_fused}
+            "sigmoid_pseudo_nms_fused": sigmoid_pseudo_nms_fused,
+            "planar_mbconv": planar_mbconv, "planar_mbconv_chain": planar_mbconv_chain}
 
 
 def zero_launches():
@@ -483,6 +679,11 @@ def zero_launches():
 def read_launches():
     torch.cuda.synchronize()
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def launch_counts(**launched):
+    """The counts of every wrapper: those named, 0 for the others."""
+    return {name: launched.get(name, 0) for name in kernel_wrappers()}
 
 
 def phase_main(det, det320, det_cpu):
@@ -506,7 +707,7 @@ def phase_main(det, det320, det_cpu):
     calls += 1
     launches = read_launches()
     log(f"[main] module forward: decode calls {calls}, kernel launches {launches}")
-    if launches != {"decode_feats_fused": calls, "fused_mbconv": 0, "sigmoid_pseudo_nms_fused": 0}:
+    if launches != launch_counts(decode_feats_fused=calls):
         raise AssertionError(f"[main] module forward: launches {launches} for {calls} decode calls")
 
     check_result(d640, g640, [(640, 640)] * 32, "detect_batch bs32 640x640")
@@ -541,7 +742,7 @@ def phase_main_fast(det_fast, det_fast320, det_f32, d640_module, x, module_feats
     d320 = det_fast320.detect_batch(s320, score_thresh=0.05)
     launches = read_launches()
     log(f"[main] fast engine: one forward at 640 {after640}, then one at 320 {launches}")
-    want = {"decode_feats_fused": 2, "fused_mbconv": at640 + at320, "sigmoid_pseudo_nms_fused": 0}
+    want = launch_counts(decode_feats_fused=2, fused_mbconv=at640 + at320)
     if after640["fused_mbconv"] != at640 or launches != want:
         raise AssertionError(f"[main] fast engine: launches {after640}, {launches}; wanted {want}")
 
@@ -586,7 +787,7 @@ def phase_main_landmarks():
     d_off = off.detect_batch(imgs, score_thresh=0.0)
     after_off = read_launches()
     log(f"[main] landmark model bs4@320: kernel launches {launches}")
-    if launches != {"decode_feats_fused": 0, "fused_mbconv": 0, "sigmoid_pseudo_nms_fused": 1} or after_off != launches:
+    if launches != launch_counts(sigmoid_pseudo_nms_fused=1) or after_off != launches:
         raise AssertionError(f"[main] landmark model: launches {launches}, then {after_off} without the switch")
     for a, b in zip(d_on, d_off):
         if a.landmarks is None or a.landmarks.shape != (len(a.scores), 5, 2) or len(a.scores) != 200:
@@ -598,6 +799,57 @@ def phase_main_landmarks():
         if not same:
             raise AssertionError("[main] landmark model: use_pallas changes the result")
     log("[main] landmark model bs4@320: boxes, scores and landmarks bit-equal with the fused dense stage on and off")
+    return launches
+
+
+def phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640_module, x, module_feats):
+    """Path d, the detect path through PlanarEngine and the planar chain
+    kernel: bs32 @ 640 on the batch of `phase_main`, whose module-forward
+    detections `d640_module` it must agree with under the fast engine's rule
+    (FAST_MATCH_SHARE, the float32 forward as arbiter), and bs4 at 320 against
+    the port's CPU run of the same engine. Returns the launch counts."""
+    b640, g640 = paint_batch(1, 32, (640, 640))
+    s320, g320 = paint_batch(5, 4, (384, 512))
+    runs = {size: det._engine.chain_runs(size) for size, det in ((640, det_planar), (320, det_planar320))}
+    if runs != PLANAR_CHAINS:
+        raise AssertionError(f"[main] planar engine: chains {runs}, wanted {PLANAR_CHAINS}")
+
+    zero_launches()
+    d640 = det_planar.detect_batch(b640, score_thresh=0.05)
+    after640 = read_launches()
+    d320 = det_planar320.detect_batch(s320, score_thresh=0.05)
+    launches = read_launches()
+    log(f"[main] planar engine: one forward at 640 {after640}, then one at 320 {launches}")
+    if (after640 != launch_counts(decode_feats_fused=1, planar_mbconv_chain=3)
+            or launches != launch_counts(decode_feats_fused=2, planar_mbconv_chain=3 + 4)):
+        raise AssertionError(f"[main] planar engine: launches {after640}, {launches}; wanted 3 chains at 640 and 4 at 320")
+
+    check_result(d640, g640, [(640, 640)] * 32, "planar engine detect_batch bs32 640x640")
+    check_result(d320, g320, [(384, 512)] * 4, "planar engine detect_batch bs4 at 320")
+    # the counts are read; what follows compares and launches outside the count
+    ref320 = det_planar_cpu.detect_batch(s320, score_thresh=0.05)
+    n320, bad320 = count_unmatched(d320, ref320)
+    log(f"[main] planar engine at 320: card and CPU, detections >= {BF16_FIRM} of either without a partner within "
+        f"{BF16_BOX_ATOL} px and {BF16_SCORE_ATOL} on the other: {bad320} of {n320}")
+    if bad320 or not n320:
+        raise AssertionError(f"[main] planar engine at 320: card and CPU differ on {bad320} of {n320} detections")
+    d640_f32 = det_f32.detect_batch(b640, score_thresh=0.05)
+    with torch.inference_mode():
+        hm_planar, hm_f32 = det_planar._forward(x)["hm"], det_f32._forward(x)["hm"]
+    hm_err = {"planar": (hm_planar - hm_f32).abs().mean().item(),
+              "module": (module_feats["hm"] - hm_f32).abs().mean().item()}
+    n, bad = count_unmatched(d640, d640_module)
+    n_pl, bad_pl = count_unmatched(d640, d640_f32)
+    n_mod, bad_mod = count_unmatched(d640_module, d640_f32)
+    log(f"[main] planar engine bs32@640, detections >= {BF16_FIRM} without a partner within {BF16_BOX_ATOL} px and "
+        f"{BF16_SCORE_ATOL} (both ways): planar/module {bad} of {n}, planar/float32 {bad_pl} of {n_pl}, "
+        f"module/float32 {bad_mod} of {n_mod}; mean |hm - float32 hm|: planar {hm_err['planar']:.4g}, "
+        f"module {hm_err['module']:.4g}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[main] planar engine: {bad} of {n} detections differ from the module forward's")
+    if bad_pl > bad_mod + FAST_F32_SLACK or hm_err["planar"] > FAST_F32_HM_RATIO * hm_err["module"]:
+        raise AssertionError("[main] planar engine: further from the float32 forward than the module forward is")
+
     return launches
 
 
@@ -704,11 +956,91 @@ def times_nms():
     }
 
 
-def phase_times(det, det_fast, det_feats, block_inputs):
+def _block_work(pos, cin, blk):
+    """(weight bytes, product operations, depthwise operations) of one block
+    over `pos` positions: w1 and w2 in bfloat16, wd and the biases in float32."""
+    ce, cout = blk["wd"].shape[-1], blk["w2"].shape[-1]
+    expand = cin * ce if blk["w1"] is not None else 0
+    wbytes = 2 * (expand + ce * cout) + 4 * (9 * ce + ce + cout + (ce if blk["w1"] is not None else 0))
+    return wbytes, 2 * pos * (expand + ce * cout), 2 * pos * 9 * ce
+
+
+def times_planar(chains, singles):
+    """The planar chain kernel (B4b) at every chain of the planar engine
+    (`chains`), and the one-block kernel (B4a), which is on no path, at
+    blocks 0 and 2 of a 640 input (`singles`) and at each 640 chain's first
+    block, batch 32, beside their bounds, their plain versions and the port's
+    `InvertedResidual` modules over the same blocks (cuDNN convolutions). Both
+    wrappers are timed on packed weights; B4a's time includes its wrapper's
+    cast of the float32 result to bfloat16. B4b's totals are those of one
+    bs32@640 forward (three launches), B4a's those of blocks 0 and 2.
+    Bytes: x and out once (bfloat16) and every weight once."""
+    from tpucenterface_torch.ops.planar_mbconv import (
+        nhwc_from_planar, pack_planar_blocks, planar_mbconv, planar_mbconv_chain, planar_mbconv_chain_plain,
+        planar_mbconv_plain,
+    )
+
+    def run_modules(mods, y):
+        for m in mods:
+            y = m(y)
+        return y
+
+    one, many = [], []
+    for ch, single in [(ch, True) for ch in singles] + [(ch, False) for ch in chains]:
+        x, h, w, blocks = ch["x"], ch["H"], ch["W"], ch["blocks"]
+        b, c0, _ = x.shape
+        pos = b * h * w
+        y = nhwc_from_planar(x, h, w).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        packed = pack_planar_blocks(blocks, c0, x.device)
+        work, cin = [], c0
+        for blk in blocks:
+            work.append(_block_work(pos, cin, blk))
+            cin = blk["w2"].shape[-1]
+        nbytes = 2 * pos * (c0 + cin) + sum(wk[0] for wk in work)
+        bound_ms, bound_by = bound(nbytes, [(sum(wk[1] for wk in work), BF16_TC_OPS_PER_S),
+                                            (sum(wk[2] for wk in work), F32_OPS_PER_S)])
+        tag = {"blocks": [ch["first"], ch["first"] + ch["count"] - 1], "input": ch["size"], "x": [b, c0, h, w],
+               "widths": [c0] + [blk["w2"].shape[-1] for blk in blocks]}
+        with torch.inference_mode():
+            if not single:
+                many.append({
+                    **tag,
+                    "ms": cuda_ms(lambda: planar_mbconv_chain(x, packed, H=h, W=w), iters=20),
+                    "plain_ms": cuda_ms(lambda: planar_mbconv_chain_plain(x, blocks, H=h, W=w), iters=3, warmup=1),
+                    "library_ms": cuda_ms(lambda: run_modules(ch["modules"], y), iters=20),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "in_total": ch["size"] == 640,
+                })
+            if ch["size"] != 640:
+                continue
+            blk = blocks[0]
+            args = [blk[k] for k in _BLOCK_KEYS]
+            packed_one = pack_planar_blocks(blocks[:1], c0, x.device)
+            cout = blk["w2"].shape[-1]
+            bound_ms, bound_by = bound(2 * pos * (c0 + cout) + work[0][0],
+                                       [(work[0][1], BF16_TC_OPS_PER_S), (work[0][2], F32_OPS_PER_S)])
+            one.append({
+                "block": ch["first"], "input": ch["size"], "x": [b, c0, h, w], "ce": blk["wd"].shape[-1], "cout": cout,
+                "ms": cuda_ms(lambda: planar_mbconv(x, packed_one, H=h, W=w), iters=20),
+                "plain_ms": cuda_ms(lambda: planar_mbconv_plain(x, *args, H=h, W=w, skip=blk["skip"]), iters=3, warmup=1),
+                "library_ms": cuda_ms(lambda: ch["modules"][0](y), iters=20),
+                "bound_ms": bound_ms, "bound_by": bound_by, "in_total": single,
+            })
+
+    def totals(shapes):
+        at640 = [sh for sh in shapes if sh["in_total"]]
+        total = {k: sum(sh[k] for sh in at640) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by = {wh: sum(sh["bound_ms"] for sh in at640 if sh["bound_by"] == wh) for wh in ("bytes", "operations")}
+        return {**total, "bound_by": max(by, key=by.get), "shapes": shapes}
+
+    return totals(one), totals(many)
+
+
+def phase_times(det, det_fast, det_planar, det_feats, block_inputs, chains, singles):
     """End-to-end times (pre-sized and letterboxed bs32@640, single 640) of
-    the module forward and the pre-sized bs32@640 of the fast engine, where
-    the time goes at bs32@640 in each, and every kernel's times. The
-    launches made here are not main-path launches: the counts are put back."""
+    the module forward and the pre-sized bs32@640 and single 640 of the fast
+    and the planar engine, where the time goes at bs32@640 in each, and every
+    kernel's times. The launches made here are not main-path launches: the
+    counts are put back."""
     from tpucenterface_torch.preprocess import normalize_images
 
     before = read_launches()
@@ -717,37 +1049,51 @@ def phase_times(det, det_fast, det_feats, block_inputs):
     one, _ = paint_batch(7, 1, (640, 640))
     batch = cuda_times(lambda: det.detect_batch(b640, score_thresh=0.05), iters=20)
     fast = cuda_times(lambda: det_fast.detect_batch(b640, score_thresh=0.05), iters=20)
+    planar = cuda_times(lambda: det_planar.detect_batch(b640, score_thresh=0.05), iters=20)
     lbox = cuda_times(lambda: det.detect_batch(lb_imgs, hws=lb_hws, score_thresh=0.05), iters=20)
-    single = cuda_times(lambda: det.detect(one[0], score_thresh=0.05), iters=100)
-    fast_single = cuda_times(lambda: det_fast.detect(one[0], score_thresh=0.05), iters=100)
+    # the three forwards in turns, twice: module, fast, planar, module, fast, planar
+    singles_ms = {name: [] for name in ("module", "fast", "planar")}
+    for name, d in (("module", det), ("fast", det_fast), ("planar", det_planar)) * 2:
+        singles_ms[name] += cuda_times(lambda d=d: d.detect(one[0], score_thresh=0.05), iters=50)
+    single, fast_single, planar_single = (singles_ms[name] for name in ("module", "fast", "planar"))
 
+    planar_one, planar_many = times_planar(chains, singles)
     ktimes = {
         "decode_feats_fused": times_decode(det_feats),
         "fused_mbconv": times_mbconv(det, block_inputs),
         "sigmoid_pseudo_nms_fused": times_nms(),
+        "planar_mbconv": planar_one,
+        "planar_mbconv_chain": planar_many,
     }
 
     imgs = torch.from_numpy(b640).to("cuda")
     pp, raw = det.config.preprocess, det.config.model.stem_preprocess
     with torch.inference_mode():
         x = normalize_images(imgs, pp, raw=raw)
-        # module, fast, fast, module: the two forwards in turns on one card
-        fwd = [cuda_ms(lambda d=d: d._forward(x), iters=10) for d in (det, det_fast, det_fast, det)]
+        # the three forwards in turns on one card
+        order = ("module", "fast", "planar", "planar", "fast", "module")
+        dets = {"module": det, "fast": det_fast, "planar": det_planar}
+        fwd = [cuda_ms(lambda d=dets[name]: d._forward(x), iters=10) for name in order]
         stages = {
             "h2d_copy": cuda_ms(lambda: torch.from_numpy(b640).to("cuda"), iters=10),
             "preprocess": cuda_ms(lambda: normalize_images(imgs, pp, raw=raw), iters=10),
             "forward": fwd[0],
-            "forward_runs_module_fast_fast_module": fwd,
+            "forward_runs_" + "_".join(order): fwd,
             "forward_fast_engine": fwd[1],
+            "forward_planar_engine": fwd[2],
             "decode": ktimes["decode_feats_fused"]["ms"],
         }
     prof = device_profile(lambda: det.detect_batch(b640, score_thresh=0.05))
     prof_fast = device_profile(lambda: det_fast.detect_batch(b640, score_thresh=0.05))
+    prof_planar = device_profile(lambda: det_planar.detect_batch(b640, score_thresh=0.05))
     for name, fn in kernel_wrappers().items():
         fn.launches = before[name]
 
     def spread(ts):
         return {"p50": float(np.median(ts)), "min": min(ts), "max": max(ts), "n": len(ts)}
+
+    def tail(ts):
+        return {"p50": float(np.median(ts)), "p90": float(np.percentile(ts, 90)), "n": len(ts)}
 
     times = {
         "detect_batch_bs32_640_ms": spread(batch),
@@ -756,13 +1102,15 @@ def phase_times(det, det_fast, det_feats, block_inputs):
         "fast_engine_detect_batch_bs32_640_img_s": 32e3 / float(np.median(fast)),
         "detect_batch_bs32_640_letterbox_ms": spread(lbox),
         "detect_batch_bs32_640_letterbox_img_s": 32e3 / float(np.median(lbox)),
-        "detect_single_640_ms": {"p50": float(np.median(single)), "p90": float(np.percentile(single, 90)),
-                                 "n": len(single)},
-        "fast_engine_detect_single_640_ms": {"p50": float(np.median(fast_single)),
-                                             "p90": float(np.percentile(fast_single, 90)), "n": len(fast_single)},
+        "planar_engine_detect_batch_bs32_640_ms": spread(planar),
+        "planar_engine_detect_batch_bs32_640_img_s": 32e3 / float(np.median(planar)),
+        "detect_single_640_ms": tail(single),
+        "fast_engine_detect_single_640_ms": tail(fast_single),
+        "planar_engine_detect_single_640_ms": tail(planar_single),
         "stages_bs32_640_ms": stages,
         "profile_bs32_640": prof,
         "profile_fast_engine_bs32_640": prof_fast,
+        "profile_planar_engine_bs32_640": prof_planar,
     }
     log("[times] " + json.dumps(times))
     return times, ktimes
@@ -785,10 +1133,18 @@ def main() -> int:
         x = normalize_images(torch.from_numpy(feats_imgs).to("cuda"), det.config.preprocess, raw=True)
         det_feats = det._forward(x)
     block_inputs = mbconv_block_inputs(det, x)
+    imgs320, _ = paint_batch(9, 32, (320, 320))
+    with torch.inference_mode():
+        x320 = normalize_images(torch.from_numpy(imgs320).to("cuda"), det.config.preprocess, raw=True)
+    chains = planar_chain_inputs(det, x, 640, PLANAR_CHAINS[640]) + planar_chain_inputs(det, x320, 320, PLANAR_CHAINS[320])
+    singles = planar_chain_inputs(det, x, 640, PLANAR_SINGLE_BLOCKS)
+    planar_one, planar_many = phase_kernels_planar(chains, singles)
     errs = {
         "decode_feats_fused": phase_kernels_decode(det_feats),
         "fused_mbconv": max(phase_kernels_mbconv(block_inputs).values()),
         "sigmoid_pseudo_nms_fused": phase_kernels_nms(),
+        "planar_mbconv": max(planar_one.values()),
+        "planar_mbconv_chain": max(planar_many.values()),
     }
 
     at320 = dict(decode=cfg.decode, default_size=320)
@@ -800,17 +1156,27 @@ def main() -> int:
     module_launches, d640 = phase_main(det, det320, det_cpu)
     det_f32 = Detector.from_safetensors(
         FLAGSHIP, dataclasses.replace(cfg, model=ModelConfig(compute_dtype="float32")))
+    planar_model = ModelConfig(inference_engine="planar")
+    det_planar = Detector.from_safetensors(FLAGSHIP, dataclasses.replace(cfg, model=planar_model))
+    det_planar320 = Detector.from_safetensors(FLAGSHIP, DetectorConfig(model=planar_model, **at320))
+    det_planar_cpu = Detector.from_safetensors(FLAGSHIP, DetectorConfig(model=planar_model, **at320), device="cpu")
     paths = [module_launches, phase_main_fast(det_fast, det_fast320, det_f32, d640, x, det_feats),
-             phase_main_landmarks()]
+             phase_main_landmarks(),
+             phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640, x, det_feats)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"[main] a kernel of the paths was never launched: {launches}")
-    times, ktimes = phase_times(det, det_fast, det_feats, block_inputs)
+    # no engine calls the one-block planar kernel (as in the JAX package): it
+    # is on no path, and a launch of it on one would be a fault
+    on_path = {name: name != "planar_mbconv" for name in errs}
+    if any((launches[name] > 0) != on_path[name] for name in errs):
+        raise AssertionError(f"[main] launches {launches}: every kernel of the paths at least once, the others never")
+    times, ktimes = phase_times(det, det_fast, det_planar, det_feats, block_inputs, chains, singles)
 
     sources = {
         "decode_feats_fused": ("tpucenterface_torch/csrc/decode.cu", "tpucenterface/decode/pallas_decode.py:134"),
         "fused_mbconv": ("tpucenterface_torch/csrc/mbconv.cu", "tpucenterface/ops/fused_mbconv.py:150"),
         "sigmoid_pseudo_nms_fused": ("tpucenterface_torch/csrc/nms.cu", "tpucenterface/decode/pallas_nms.py:45"),
+        "planar_mbconv": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:151"),
+        "planar_mbconv_chain": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:303"),
     }
     record = {
         "kernels": [
@@ -820,6 +1186,7 @@ def main() -> int:
                 "source": source,
                 "replaces": replaces,
                 "launches": launches[name],
+                "on_path": on_path[name],
                 "max_abs_err": errs[name],
                 **ktimes[name],
             }

@@ -87,7 +87,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys; import tpucenterface_torch; "
         "import tpucenterface_torch.ops.fused_mbconv, tpucenterface_torch.model.fast_forward, "
-        "tpucenterface_torch.decode.fused_nms, tpucenterface_torch.kernels.build; "
+        "tpucenterface_torch.decode.fused_nms, tpucenterface_torch.kernels.build, "
+        "tpucenterface_torch.ops.planar_mbconv, tpucenterface_torch.model.planar_engine; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -180,8 +181,8 @@ def test_fast_engine_matches_module_forward(scenes):
 
 
 def test_unknown_engine_raises():
-    cfg = T.DetectorConfig(model=T.ModelConfig(inference_engine="planar"))
-    with pytest.raises(NotImplementedError, match="planar"):
+    cfg = T.DetectorConfig(model=T.ModelConfig(inference_engine="banded"))
+    with pytest.raises(NotImplementedError, match="banded"):
         T.Detector(config=cfg, device="cpu")
 
 

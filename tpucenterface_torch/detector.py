@@ -16,16 +16,19 @@ the GPU unless the caller passes another; asking for the GPU on a machine
 without one raises.
 
 Two switches of the config choose kernels of the port:
-- `ModelConfig.inference_engine == "fast"` runs the forward through
-  `model.fast_forward.FastEngine` with the fused MBConv kernel
-  (`ops.fused_mbconv`); the default `"flax"` is the module forward.
+- `ModelConfig.inference_engine`: the default `"flax"` is the module forward;
+  `"fast"` runs the forward through `model.fast_forward.FastEngine` with the
+  fused MBConv kernel (`ops.fused_mbconv`); `"planar"` runs it through
+  `model.planar_engine.PlanarEngine` with every run of stride-1 blocks on a
+  map at most `PLANAR_CHAIN_RES` rows high as one launch of the planar chain
+  kernel (`ops.planar_mbconv.planar_mbconv_chain`).
 - `DecodeConfig.use_pallas` takes the fused decode kernel
   (`decode.fused_decode`) for a model without a landmark head, and the fused
   sigmoid + pseudo-NMS kernel (`decode.fused_nms`) ahead of the reference
   top-K and gathers for a model with one.
 
-Not ported yet: `quantize`, `from_torch_pth`, the flip-TTA batch program,
-the planar engine and the space-to-depth stem.
+Not ported yet: `quantize`, `from_torch_pth`, the flip-TTA batch program and
+the space-to-depth stem.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from tpucenterface_torch.decode.reference import (
 )
 from tpucenterface_torch.model.centernet import init_model, load_network
 from tpucenterface_torch.model.fast_forward import FastEngine
+from tpucenterface_torch.model.planar_engine import PlanarEngine
 from tpucenterface_torch.preprocess import (
     letterbox_normalize_batch,
     normalize_images,
@@ -54,6 +58,15 @@ from tpucenterface_torch.preprocess import (
 )
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_safetensors
+
+
+# The planar engine chains stride-1 blocks on maps up to this many rows high:
+# at a 640 input blocks 4-5 (80x80), 7-12 (40x40) and 14-16 (20x20), three
+# launches a forward; at 320 block 2 (80x80) as well, four. The JAX Detector
+# builds its planar engine with no chain at all (`max_chain_res=0`); the port
+# turns the kernel on, as it does for the fast engine, so that choosing the
+# engine chooses the kernel.
+PLANAR_CHAIN_RES = 80
 
 
 class Detections(NamedTuple):
@@ -100,14 +113,20 @@ class Detector:
             )
         self.variables = variables
         engine = self.config.model.inference_engine
-        if engine not in ("flax", "fast"):
+        if engine not in ("flax", "fast", "planar"):
             raise NotImplementedError(f"the port has no '{engine}' inference engine")
-        # The fast engine holds its own copies of the block weights beside the
+        # An engine holds its own copies of the block weights beside the
         # network it builds; `model` is that network, so there is one of it.
+        # Both engines need a folded model and raise otherwise.
         self._engine = None
-        if engine == "fast":  # needs a folded model; FastEngine raises otherwise
+        if engine == "fast":
             self._engine = FastEngine(
                 variables, self.config.model, use_mbconv_kernel=True, device=self.device
+            )
+            self.model = self._engine.net
+        elif engine == "planar":
+            self._engine = PlanarEngine(
+                variables, self.config.model, max_chain_res=PLANAR_CHAIN_RES, device=self.device
             )
             self.model = self._engine.net
         else:
@@ -129,7 +148,7 @@ class Detector:
     ) -> None:
         """Swap the model weights. The new weights go through the same
         construction as `__init__` (BatchNorm fold, head fusion, engine
-        build), so the fast engine's own block weights are rebuilt with the
+        build), so an engine's own block weights are rebuilt with the
         network. Not synchronised with a detect call running in another
         thread."""
         if safetensors_path is not None:

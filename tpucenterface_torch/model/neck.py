@@ -6,7 +6,7 @@ the 1x1 lateral, then the 3x3 smooth conv.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +29,11 @@ class FPNLiteNeck(nn.Module):
         for s in self.strides[1:]:
             self.add_module(f"smooth_{s}", ConvBN(c, c, kernel=3, **kw))
 
-    def forward(self, feats: Dict[int, torch.Tensor]) -> torch.Tensor:
+    def forward(self, feats: Dict[int, torch.Tensor], top_lateral: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`top_lateral`, where given, stands for the top lateral's output (a
+        caller that has folded that 1x1 conv into the backbone passes it)."""
         top = self.strides[0]
-        y = getattr(self, f"lateral_{top}")(feats[top])
+        y = getattr(self, f"lateral_{top}")(feats[top]) if top_lateral is None else top_lateral
         for s in self.strides[1:]:
             lat = getattr(self, f"lateral_{s}")(feats[s])
             y = F.interpolate(y, scale_factor=2, mode="nearest") + lat

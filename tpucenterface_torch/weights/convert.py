@@ -15,12 +15,14 @@ carried like any other kernel. Values are copied exactly.
 
 `mbconv_args_from_block` cuts one folded inverted-residual block into the
 arguments of `ops.fused_mbconv` (`tpucenterface/model/fast_forward.py:129-147`
-without its channel padding).
+without its channel padding); `chain_blocks_from_run` turns a run of them into
+the block list of `ops.planar_mbconv.planar_mbconv_chain`
+(`tpucenterface/model/planar_engine.py:164-173,218-227`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,3 +112,17 @@ def mbconv_args_from_block(block: Mapping[str, Any]) -> MBConvArgs:
     wd = np.ascontiguousarray(k[:, :, 0, :])
     k, b2 = conv("project")
     return w1, b1, wd, bd, np.ascontiguousarray(k[0, 0]), b2
+
+
+def chain_blocks_from_run(blocks: Sequence[Mapping[str, Any]], cin: int) -> List[Dict[str, Any]]:
+    """A run of consecutive folded stride-1 flax blocks, entered with `cin`
+    channels -> the chain's block list: {w1, b1, wd, bd, w2, b2} as
+    `mbconv_args_from_block` gives them (float32 numpy) and `skip`, true where
+    a block's output is as wide as its input."""
+    run = []
+    for block in blocks:
+        args = mbconv_args_from_block(block)
+        cout = args[4].shape[1]
+        run.append({**dict(zip(("w1", "b1", "wd", "bd", "w2", "b2"), args)), "skip": cin == cout})
+        cin = cout
+    return run
