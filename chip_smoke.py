@@ -6,12 +6,17 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
-   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`) with nvcc into
-   build/kernels/, one nvcc per source, all started together;
+   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/int8_conv.cu`,
+   `csrc/int8_block.cu`) with nvcc into build/kernels/, one nvcc per source,
+   all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
-   tie-heavy inputs; the one-block planar kernel, which no engine calls, is
-   held to its plain version here and timed in phase 5, and is on no path;
+   tie-heavy inputs; the one-block planar kernel, the int8 1x1 conv and the
+   stride-2 int8 block, which no engine calls, are held to their plain
+   versions here and timed in phase 5, and are on no path. The int8 kernels
+   are integer-exact up to float32 epilogues that round as their plain
+   versions do, so they are held to them bit for bit, at the flagship's
+   quantized weights and calibrated scales;
 4. main paths, each with every launch counter set to 0 just before and read
    just after:
    a. `Detector.detect_batch` / `detect` on the flagship weights
@@ -28,9 +33,18 @@ Phases, in order; any failure raises and the script exits non-zero:
       the planar chain kernel: three launches a forward at 640, four at 320)
       at batch 32 and 640x640 against the module forward on the same card,
       and at 320 against the port's CPU run;
+   e. the flagship weights quantized (`Detector.quantize(int8_dw=True)`,
+      calibrated on eight painted 640 frames) on two routes: the library
+      route (`fused_blocks=False`: torch._int_mm and int32 depthwise sums)
+      and the B7 route (`fused_blocks=True`: ten launches of the stride-1
+      int8 block kernel a forward), each at batch 32 and 128 and 640x640
+      against the bf16 module forward on the same card (the float32 forward
+      as arbiter), and at 320 against the port's CPU run under the same
+      scales; the B7 route against the library route as well;
 5. times with CUDA events (median after warm-up), and torch.profiler
-   summaries of one bs32@640 batch of the module forward, of the fast engine
-   and of the planar engine (device busy share, top device ops).
+   summaries of one bs32@640 batch of the module forward, of the fast engine,
+   of the planar engine and of both quantized routes (device busy share, top
+   device ops).
 
 The images are procedural faces painted with numpy from a seed; the run
 checks that the detector finds them. The last two lines are the
@@ -107,6 +121,36 @@ PLANAR_CHAINS = {640: [(4, 2), (7, 6), (14, 3)], 320: [(2, 1), (4, 2), (7, 6), (
 # The blocks of the default model with distinct kernel shapes at 640, and how
 # many blocks of a forward share each shape (FastEngine.kernel_blocks(640)).
 MBCONV_BLOCKS_640 = {0: 1, 2: 1, 4: 2, 7: 3, 10: 1, 11: 2}
+# dense int8 tensor-core operations a second (H100 SXM data sheet)
+INT8_TC_OPS_PER_S = 1979e12
+# The quantized path: the stride-2 blocks (B6 is held and timed at each; on no
+# path) and the stride-1 residual blocks (B7, ten launches a forward) of the
+# default model, and the eight painted 640 frames it is calibrated on
+# (bench.py:125 of the JAX package calibrates on eight frames).
+QUANT_S2_BLOCKS = [1, 3, 6, 13]
+QUANT_S1_BLOCKS = [2, 4, 5, 7, 8, 9, 11, 12, 14, 15]
+QUANT_CALIB_SEED, QUANT_CALIB_FRAMES = 21, 8
+# The quantized forward against the bf16 module forward on the same card, at
+# bs32 and bs128 @ 640: int8 activations move a weak peak or a score by more
+# than a bf16 rounding does (seen: 6-10% of the detections >= 0.1 without a
+# partner within 2 px and 0.03, against 0.3-1.7% for the bf16 module forward
+# against float32), so each route must match the module forward and the
+# float32 forward on QUANT_MATCH_SHARE of their detections, and its heat map
+# may lie at most QUANT_F32_HM_RATIO times as far from the float32 one as the
+# module forward's (seen: 5.0 times).
+QUANT_MATCH_SHARE, QUANT_F32_HM_RATIO = 0.85, 8.0
+# The B7 route against the library route under the same scales: the kernel
+# adds the residual in float32 before one bf16 rounding (the library route
+# rounds the project output first) and multiplies by reciprocal scales where
+# the library route divides. A bf16 step moves the next block's int8 input,
+# and the flips are carried on as quantization noise of the same order as the
+# library route's own (seen at bs32: 19 of 296 detections unmatched between
+# the routes; each route misses 19 of the float32 forward's). So the routes
+# must match on B7_MATCH_SHARE of their detections, and the float32 forward
+# arbitrates: the B7 route may miss it on at most B7_F32_SLACK times as many
+# detections as the library route (plus FAST_F32_SLACK), and its heat map may
+# lie at most B7_F32_HM_RATIO times as far from the float32 one.
+B7_MATCH_SHARE, B7_F32_SLACK, B7_F32_HM_RATIO = 0.9, 1.25, 1.1
 
 
 def log(msg: str) -> None:
@@ -283,7 +327,7 @@ def phase_build():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("decode", "mbconv", "nms", "planar")
+    names = ("decode", "mbconv", "nms", "planar", "int8_conv", "int8_block")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed, names))
@@ -621,6 +665,166 @@ def phase_kernels_planar(chains, singles):
     return one, many
 
 
+# --------------------------------------------------------------------------- #
+# the quantized path: detectors, the int8 kernels' inputs, their checks
+# --------------------------------------------------------------------------- #
+
+
+def quant_detectors(cfg):
+    """The flagship quantized at int8_dw, calibrated on eight painted 640
+    frames (library route), and the same scales installed on the B7 route and
+    at 320 on the card and on the CPU. Returns ({route[+320[cpu]]: Detector},
+    scales)."""
+    from tpucenterface_torch import Detector, DetectorConfig
+
+    calib, _ = paint_batch(QUANT_CALIB_SEED, QUANT_CALIB_FRAMES, (640, 640))
+    at320 = DetectorConfig(decode=cfg.decode, default_size=320)
+    dets = {"library": Detector.from_safetensors(FLAGSHIP, cfg)}
+    t0 = time.perf_counter()
+    scales = dets["library"].quantize(calib_images=calib, int8_dw=True)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    for route, fused in (("library", False), ("b7", True)):
+        if route not in dets:
+            dets[route] = Detector.from_safetensors(FLAGSHIP, cfg)
+            dets[route].quantize(scales=scales, fused_blocks=fused)
+        for suffix, dev in (("320", None), ("320cpu", "cpu")):
+            dets[route + suffix] = Detector.from_safetensors(FLAGSHIP, at320, device=dev)
+            dets[route + suffix].quantize(scales=scales, fused_blocks=fused)
+    per_channel = sum(isinstance(v, np.ndarray) for v in scales.values())
+    log(f"[quant] int8_dw calibrated on {QUANT_CALIB_FRAMES} painted 640 frames in {calib_s:.2f} s: "
+        f"{len(scales)} entries, {per_channel} per-channel; B7 route blocks {dets['b7']._quant.fused_block_indices()}")
+    if dets["b7"]._quant.fused_block_indices() != QUANT_S1_BLOCKS:
+        raise AssertionError("[quant] the B7 route does not take the ten stride-1 residual blocks")
+    return dets, scales
+
+
+def quant_kernel_inputs(eng, x):
+    """The int8 kernels' inputs and operands at the flagship's quantized
+    weights and calibrated scales, on the activations the library route gives
+    the normalized batch `x`: B5 at block 0's project (its int8 depthwise
+    output, planar) requantized to block 1's expand scale; B6 at each
+    stride-2 block (its bf16 input quantized at its expand scale, NHWC); B7
+    at each stride-1 residual block (its bf16 input). Also the NHWC inputs
+    the library route times take."""
+    from tpucenterface_torch.ops.int8_block import nhwc_to_planar
+    from tpucenterface_torch.weights.convert import int8_block_args, int8_conv_args
+
+    dev = x.device
+
+    def on(args):
+        return {k: float(v) if k == "inv_se" else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in args.items()}
+
+    ys = {}
+    with torch.inference_mode():
+        y = eng._conv("stem", "quant", x, "relu6")
+        for i in range(max(QUANT_S1_BLOCKS + QUANT_S2_BLOCKS) + 1):
+            ys[i] = y
+            y = eng.run_block(i, y)
+        b0_dw = eng._conv("b0.dw", "quant", ys[0], "relu6", out_int8_tag="b0.project")
+        b6 = {}
+        for i in QUANT_S2_BLOCKS:
+            sx = torch.tensor(eng.input_scale(f"b{i}.expand"), device=dev)
+            xq = torch.round(ys[i].float() / sx).clamp_(-127, 127).to(torch.int8)
+            b6[i] = (xq, on(int8_block_args(eng, i)))
+    return {
+        "b5": (nhwc_to_planar(b0_dw), on(int8_conv_args(eng, 0, "b1.expand"))),
+        "b5_nhwc": b0_dw,
+        "b6": b6,
+        "b7": {i: (ys[i], on(int8_block_args(eng, i))) for i in QUANT_S1_BLOCKS},
+        "ys": ys,
+    }
+
+
+def _int8_block_ops(gen, cin, cmid, cout, dev, tie):
+    """Random block operands, or tie-heavy ones: small integer weights,
+    power-of-two scales and zero biases, so the scaled values land on .5."""
+    def ints(*shape, lo=-127, hi=128):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    def rand(n, a, b=0.0):
+        return (torch.rand(n, generator=gen) * a + b).to(dev)
+
+    def full(n, v):
+        return torch.full((n,), v, dtype=torch.float32, device=dev)
+
+    if tie:
+        return {"we": ints(cmid, cin, lo=-3, hi=4), "e_scale": full(cmid, 2.0 ** -6), "e_bias": full(cmid, 0.0),
+                "e_inv_sdw": full(cmid, 32.0), "wd": ints(9, cmid, lo=-3, hi=4).float(),
+                "d_scale": full(cmid, 2.0 ** -8), "d_bias": full(cmid, 0.0), "d_inv_sproj": full(cmid, 128.0),
+                "wp": ints(cout, cmid, lo=-3, hi=4), "p_scale": full(cout, 0.5), "p_bias": full(cout, 0.0)}
+    return {"we": ints(cmid, cin), "e_scale": rand(cmid, 2e-4, 1e-4), "e_bias": rand(cmid, 0.5),
+            "e_inv_sdw": rand(cmid, 40, 20), "wd": ints(9, cmid).float(), "d_scale": rand(cmid, 2e-4, 1e-4),
+            "d_bias": rand(cmid, 0.5), "d_inv_sproj": rand(cmid, 40, 20), "wp": ints(cout, cmid),
+            "p_scale": rand(cout, 2e-4, 1e-4), "p_bias": rand(cout, 0.5)}
+
+
+def _check_bit_equal(what, got, want):
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        n = (got != want).sum().item() if got.shape == want.shape else f"shape {tuple(got.shape)}"
+        raise AssertionError(f"[kernels] {what}: differs from the plain version ({n})")
+    log(f"[kernels] {what}: bit-equal to the plain version, out {tuple(got.shape)} {got.dtype}")
+
+
+def phase_kernels_int8(inputs):
+    """B5 (int8_conv1x1), B6 (int8_block_s2) and B7 (int8_block_s1) against
+    their plain versions on the card, bit for bit: at the flagship's quantized
+    weights and calibrated scales at bs32@640 (`quant_kernel_inputs`), on
+    ragged maps with random operands, and on tie-heavy operands. Returns
+    {kernel: max |err|} (0 or the run fails)."""
+    from tpucenterface_torch.ops.int8_block import (
+        fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2,
+    )
+    from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
+
+    x, a = inputs["b5"]
+    dev = x.device
+    _check_bit_equal("int8_conv1x1 block 0 project, requantized to b1.expand, bs32@640",
+                     int8_conv1x1(x, **a), conv1x1_int8_plain(x, **a))
+    for i, (x, a) in inputs["b6"].items():
+        _check_bit_equal(f"int8_block_s2 block {i} bs32@640", int8_block_s2(x, **a), fused_block_int8_plain(x, **a))
+    for i, (x, a) in inputs["b7"].items():
+        _check_bit_equal(f"int8_block_s1 block {i} bs32@640", int8_block_s1(x, **a), fused_block_s1_plain(x, **a))
+    gen = torch.Generator().manual_seed(8642)
+    for what, (b, cin, p, cout), tie in (("ragged 3x24x1001 -> 40", (3, 24, 1001, 40), False),
+                                         ("960 -> 160, P 77", (2, 960, 77, 160), False),
+                                         ("ties 2x32x4099 -> 16", (2, 32, 4099, 16), True)):
+        lo, hi = (-3, 4) if tie else (-127, 128)
+        x = torch.randint(lo, hi, (b, cin, p), generator=gen, dtype=torch.int8).to(dev)
+        w = torch.randint(lo, hi, (cout, cin), generator=gen, dtype=torch.int8).to(dev)
+        if tie:
+            sc = bi = torch.full((cout,), 0.5, device=dev)
+        else:
+            sc, bi = (torch.rand(cout, generator=gen) * 1e-3).to(dev), (torch.rand(cout, generator=gen) * 4 - 2).to(dev)
+        _check_bit_equal(f"int8_conv1x1 {what}", int8_conv1x1(x, w, sc, bi), conv1x1_int8_plain(x, w, sc, bi))
+    for what, (b, h, w, cin, cmid, cout), tie in (("ragged 2x50x74 16->96->24", (2, 50, 74, 16, 96, 24), False),
+                                                  ("odd 3x33x19 96->576->160", (3, 33, 19, 96, 576, 160), False),
+                                                  ("1x1 map 8->40->8", (2, 1, 1, 8, 40, 8), False),
+                                                  ("ties 2x64x64 24->144->32", (2, 64, 64, 24, 144, 32), True)):
+        ops = _int8_block_ops(gen, cin, cmid, cout, dev, tie)
+        lo, hi = (-3, 4) if tie else (-127, 128)
+        x = torch.randint(lo, hi, (b, h, w, cin), generator=gen, dtype=torch.int8).to(dev)
+        _check_bit_equal(f"int8_block_s2 {what}", int8_block_s2(x, **ops), fused_block_int8_plain(x, **ops))
+    for what, (b, h, w, cin, cmid, cout), tie, residual in (
+        ("ragged 2x37x53 24->144->24", (2, 37, 53, 24, 144, 24), False, True),
+        ("160->960->160 2x13x7", (2, 13, 7, 160, 960, 160), False, True),
+        ("no residual 1x9x30 32->192->64", (1, 9, 30, 32, 192, 64), False, False),
+        ("ties 2x40x40 24->144->32", (2, 40, 40, 24, 144, 32), True, True),
+    ):
+        ops = _int8_block_ops(gen, cin, cmid, cout, dev, tie)
+        if tie:  # odd integers times 0.5
+            x = torch.randint(-7, 8, (b, h, w, cin), generator=gen).float().to(dev, torch.bfloat16)
+            inv_se = 0.5
+        else:
+            x = (2.0 * torch.randn(b, h, w, cin, generator=gen)).to(dev, torch.bfloat16)
+            inv_se = 37.5
+        _check_bit_equal(f"int8_block_s1 {what}", int8_block_s1(x, inv_se, **ops, residual=residual),
+                         fused_block_s1_plain(x, inv_se, **ops, residual=residual))
+    return {"int8_conv1x1": 0.0, "int8_block_s2": 0.0, "int8_block_s1": 0.0}
+
+
 def count_unmatched(a_dets, b_dets):
     """(detections of either side scoring >= BF16_FIRM, those of them with no
     partner on the other side within BF16_BOX_ATOL px and BF16_SCORE_ATOL)."""
@@ -664,11 +868,14 @@ def kernel_wrappers():
     from tpucenterface_torch.decode.fused_decode import decode_feats_fused
     from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused
     from tpucenterface_torch.ops.fused_mbconv import fused_mbconv
+    from tpucenterface_torch.ops.int8_block import int8_block_s1, int8_block_s2
+    from tpucenterface_torch.ops.int8_conv import int8_conv1x1
     from tpucenterface_torch.ops.planar_mbconv import planar_mbconv, planar_mbconv_chain
 
     return {"decode_feats_fused": decode_feats_fused, "fused_mbconv": fused_mbconv,
             "sigmoid_pseudo_nms_fused": sigmoid_pseudo_nms_fused,
-            "planar_mbconv": planar_mbconv, "planar_mbconv_chain": planar_mbconv_chain}
+            "planar_mbconv": planar_mbconv, "planar_mbconv_chain": planar_mbconv_chain,
+            "int8_conv1x1": int8_conv1x1, "int8_block_s2": int8_block_s2, "int8_block_s1": int8_block_s1}
 
 
 def zero_launches():
@@ -853,6 +1060,103 @@ def phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640_m
     return launches
 
 
+def _hm_distance(det, x, ref_hm):
+    """Mean |hm - ref_hm| of `det`'s forward on the normalized batch `x`."""
+    with torch.inference_mode():
+        return (det._forward(x)["hm"] - ref_hm).abs().mean().item()
+
+
+def phase_main_quant(dets, det_module, det_f32, d640_module, x, module_feats):
+    """Path e, the quantized detect path on both routes, with every launch
+    counter set to 0 just before and read just after: bs32 and bs128 @ 640
+    (the batch of `phase_main`, whose module-forward detections are
+    `d640_module`, and a painted bs128 batch) and bs4 at 320. Each route must
+    find the painted faces, match the bf16 module forward on the same card
+    under QUANT_MATCH_SHARE with the float32 forward as arbiter, and match
+    the port's CPU run at 320 under the same scales; the B7 route must match
+    the library route under B7_MATCH_SHARE. Returns the launch counts."""
+    b640, g640 = paint_batch(1, 32, (640, 640))
+    b128, g128 = paint_batch(13, 128, (640, 640))
+    s320, g320 = paint_batch(5, 4, (384, 512))
+    runs = {}
+    zero_launches()
+    for route in ("library", "b7"):
+        runs[route] = {"bs32": dets[route].detect_batch(b640, score_thresh=0.05),
+                       "bs128": dets[route].detect_batch(b128, score_thresh=0.05),
+                       "320": dets[route + "320"].detect_batch(s320, score_thresh=0.05)}
+    launches = read_launches()
+    log(f"[main] quantized path, both routes at bs32 and bs128 @ 640 and bs4 at 320: kernel launches {launches}")
+    want = launch_counts(decode_feats_fused=6, int8_block_s1=3 * len(QUANT_S1_BLOCKS))
+    if launches != want:
+        raise AssertionError(f"[main] quantized path: launches {launches}; wanted {want}")
+    for route, r in runs.items():
+        check_result(r["bs32"], g640, [(640, 640)] * 32, f"quantized {route} route detect_batch bs32 640x640")
+        check_result(r["bs128"], g128, [(640, 640)] * 128, f"quantized {route} route detect_batch bs128 640x640")
+        check_result(r["320"], g320, [(384, 512)] * 4, f"quantized {route} route detect_batch bs4 at 320")
+
+    # the counts are read; what follows compares and launches outside the count
+    imgs320, _ = paint_batch(9, 4, (320, 320))
+    for route, r in runs.items():
+        ref = dets[route + "320cpu"].detect_batch(s320, score_thresh=0.05)
+        n, bad = count_unmatched(r["320"], ref)
+        card, cpu = dets[route + "320"], dets[route + "320cpu"]
+        with torch.inference_mode():
+            hm_card = card._forward(normalize_raw(card, imgs320, "cuda"))["hm"].cpu()
+            hm_cpu = cpu._forward(normalize_raw(cpu, imgs320, "cpu"))["hm"]
+        hm_diff = (hm_card - hm_cpu).abs()
+        log(f"[main] quantized {route} route at 320: card and CPU under one scales dict, detections >= {BF16_FIRM} "
+            f"of either without a partner within {BF16_BOX_ATOL} px and {BF16_SCORE_ATOL}: {bad} of {n}; "
+            f"identity-path heat maps: max |card - CPU| {hm_diff.max().item():.3g}, differing "
+            f"{(hm_diff > 0).float().mean().item():.3g} of values")
+        if bad or not n:
+            raise AssertionError(f"[main] quantized {route} route at 320: card and CPU differ on {bad} of {n}")
+
+    module_dets = {"bs32": d640_module, "bs128": det_module.detect_batch(b128, score_thresh=0.05)}
+    f32_dets = {"bs32": det_f32.detect_batch(b640, score_thresh=0.05),
+                "bs128": det_f32.detect_batch(b128, score_thresh=0.05)}
+    with torch.inference_mode():
+        hm_f32 = det_f32._forward(x)["hm"]
+    hm_err = {"module": (module_feats["hm"] - hm_f32).abs().mean().item(),
+              **{route: _hm_distance(dets[route], x, hm_f32) for route in runs}}
+    failures = []
+    for bs in ("bs32", "bs128"):
+        n_mod, bad_mod = count_unmatched(module_dets[bs], f32_dets[bs])
+        missed = {}
+        for route, r in runs.items():
+            n, bad = count_unmatched(r[bs], module_dets[bs])
+            n_q, missed[route] = count_unmatched(r[bs], f32_dets[bs])
+            log(f"[main] quantized {route} route {bs}@640, detections >= {BF16_FIRM} without a partner within "
+                f"{BF16_BOX_ATOL} px and {BF16_SCORE_ATOL} (both ways): quantized/module {bad} of {n}, "
+                f"quantized/float32 {missed[route]} of {n_q}, module/float32 {bad_mod} of {n_mod}")
+            if n < 100 or bad > (1.0 - QUANT_MATCH_SHARE) * n:
+                failures.append(f"{route} route {bs}: {bad} of {n} detections differ from the module forward's")
+            if missed[route] > (1.0 - QUANT_MATCH_SHARE) * n_q:
+                failures.append(f"{route} route {bs}: {missed[route]} of {n_q} detections differ from float32's")
+        n, bad = count_unmatched(runs["b7"][bs], runs["library"][bs])
+        log(f"[main] quantized {bs}@640, B7 route against the library route: {bad} of {n} detections without a partner")
+        if n < 100 or bad > (1.0 - B7_MATCH_SHARE) * n:
+            failures.append(f"{bs}: the B7 route differs from the library route on {bad} of {n}")
+        if missed["b7"] > B7_F32_SLACK * missed["library"] + FAST_F32_SLACK:
+            failures.append(f"{bs}: the B7 route misses the float32 forward on {missed['b7']}, the library route on "
+                            f"{missed['library']}")
+    log(f"[main] quantized bs32@640 mean |hm - float32 hm|: library route {hm_err['library']:.4g}, B7 route "
+        f"{hm_err['b7']:.4g}, bf16 module forward {hm_err['module']:.4g}")
+    if hm_err["library"] > QUANT_F32_HM_RATIO * hm_err["module"]:
+        failures.append("library route: heat map too far from the float32 forward's")
+    if hm_err["b7"] > B7_F32_HM_RATIO * hm_err["library"]:
+        failures.append("B7 route: heat map further from the float32 one than the library route's")
+    if failures:  # every comparison is logged before any fails the run
+        raise AssertionError("[main] quantized path: " + "; ".join(failures))
+    return launches
+
+
+def normalize_raw(det, imgs, dev):
+    """The identity-path input of `det` for uint8 images at its size."""
+    from tpucenterface_torch.preprocess import normalize_images
+
+    return normalize_images(torch.from_numpy(imgs).to(dev), det.config.preprocess, raw=det.config.model.stem_preprocess)
+
+
 def letterboxed_batch(seed):
     """32 images of mixed content sizes zero-padded to one 640x640 bucket:
     the letterbox resize runs for each."""
@@ -1035,6 +1339,111 @@ def times_planar(chains, singles):
     return totals(one), totals(many)
 
 
+def _int8_block_bound(x, a, stride):
+    """(bound ms, by) of one int8 block launch: x and out once (int8 at
+    stride 2, bf16 at stride 1), the weights once; the expand (at the input's
+    positions) and project products on the int8 tensor cores, the depthwise's
+    multiply-adds at the float32 rate (the JAX kernels' own arithmetic)."""
+    b, h, w, cin = x.shape
+    cmid, cout = a["we"].shape[0], a["wp"].shape[0]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    esize = x.element_size()
+    nbytes = esize * (b * h * w * cin + b * ho * wo * cout) + cmid * cin + cout * cmid + 9 * cmid * 4 + 4 * (6 * cmid + 2 * cout)
+    products = 2 * (b * h * w * cin * cmid + b * ho * wo * cmid * cout)
+    return bound(nbytes, [(products, INT8_TC_OPS_PER_S), (2 * 9 * b * ho * wo * cmid, F32_OPS_PER_S)])
+
+
+def times_int8(inputs, eng):
+    """The three int8 kernels at their flagship shapes (bs32@640) beside their
+    bounds, their plain versions and the engine's library route over the same
+    conv or block (`QuantEngine._conv` / `run_block`: torch._int_mm, int32
+    depthwise sums and elementwise epilogues; for a block it starts from the
+    bf16 input and ends at the bf16 output, as the engine does). B6's and
+    B7's totals are over the blocks of one forward (four and ten)."""
+    from tpucenterface_torch.ops.int8_block import fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2
+    from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
+
+    out = {}
+    x, a = inputs["b5"]
+    b, cin, p = x.shape
+    cout = a["w"].shape[0]
+    bound_ms, bound_by = bound(b * p * (cin + cout) + cout * cin + 8 * cout, [(2 * b * p * cin * cout, INT8_TC_OPS_PER_S)])
+    x_nhwc = inputs["b5_nhwc"]
+    with torch.inference_mode():
+        out["int8_conv1x1"] = {
+            "block": 0, "x": [b, cin, p], "cout": cout,
+            "ms": cuda_ms(lambda: int8_conv1x1(x, **a), iters=50),
+            "plain_ms": cuda_ms(lambda: conv1x1_int8_plain(x, **a), iters=10),
+            "library_ms": cuda_ms(lambda: eng._conv("b0.project", "quant", x_nhwc, "none", out_int8_tag="b1.expand"),
+                                  iters=30),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    for name, key, kernel, plain, stride in (("int8_block_s2", "b6", int8_block_s2, fused_block_int8_plain, 2),
+                                             ("int8_block_s1", "b7", int8_block_s1, fused_block_s1_plain, 1)):
+        shapes = []
+        for i, (x, a) in inputs[key].items():
+            bound_ms, bound_by = _int8_block_bound(x, a, stride)
+            y = inputs["ys"][i]
+            with torch.inference_mode():
+                shapes.append({
+                    "block": i, "x": list(x.shape), "cmid": a["we"].shape[0], "cout": a["wp"].shape[0],
+                    "ms": cuda_ms(lambda: kernel(x, **a), iters=20),
+                    "plain_ms": cuda_ms(lambda: plain(x, **a), iters=5, warmup=1),
+                    "library_ms": cuda_ms(lambda: eng.run_block(i, y), iters=20),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+        total = {k: sum(sh[k] for sh in shapes) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by = {w: sum(sh["bound_ms"] for sh in shapes if sh["bound_by"] == w) for w in ("bytes", "operations")}
+        out[name] = {**total, "bound_by": max(by, key=by.get), "shapes": shapes}
+    return out
+
+
+def phase_times_quant(dets, det, inputs, x):
+    """Times of the quantized path on the H100: detect_batch at bs32 and
+    bs128 @ 640 on both routes in turns, each forward alone at bs32, the peak
+    device memory of one bs128 batch on each route, torch.profiler summaries
+    of one bs32 batch on each route, and the int8 kernels' times. The
+    launches made here are not main-path launches: the counts are put back."""
+    before = read_launches()
+    b640, _ = paint_batch(6, 32, (640, 640))
+    b128, _ = paint_batch(14, 128, (640, 640))
+    lib, b7 = dets["library"], dets["b7"]
+    times = {"library": {}, "b7": {}}
+    for route, d in (("library", lib), ("b7", b7), ("b7", b7), ("library", lib)):
+        times[route].setdefault("bs32", []).extend(cuda_times(lambda: d.detect_batch(b640, score_thresh=0.05), iters=10))
+        times[route].setdefault("bs128", []).extend(cuda_times(lambda: d.detect_batch(b128, score_thresh=0.05), iters=4, warmup=1))
+    peak = {}
+    for route, d in (("library", lib), ("b7", b7)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        d.detect_batch(b128, score_thresh=0.05)
+        peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        order = ("module", "library", "b7", "b7", "library", "module")
+        fwd = {"module": det, "library": lib, "b7": b7}
+        fwd_ms = [cuda_ms(lambda d=fwd[name]: d._forward(x), iters=10) for name in order]
+    prof = {route: device_profile(lambda d=d: d.detect_batch(b640, score_thresh=0.05))
+            for route, d in (("library", lib), ("b7", b7))}
+    ktimes = times_int8(inputs, lib._quant)
+    for name, fn in kernel_wrappers().items():
+        fn.launches = before[name]
+
+    def spread(ts):
+        return {"p50": float(np.median(ts)), "min": min(ts), "max": max(ts), "n": len(ts)}
+
+    out = {}
+    for route in ("library", "b7"):
+        for bs, n in (("bs32", 32), ("bs128", 128)):
+            ts = times[route][bs]
+            out[f"quant_{route}_detect_batch_{bs}_640_ms"] = spread(ts)
+            out[f"quant_{route}_detect_batch_{bs}_640_img_s"] = n * 1e3 / float(np.median(ts))
+        out[f"quant_{route}_peak_memory_bs128_640_gib"] = peak[route]
+        out[f"profile_quant_{route}_bs32_640"] = prof[route]
+    out["forward_bs32_640_ms_runs_" + "_".join(order)] = fwd_ms
+    log("[times] quant " + json.dumps(out))
+    return out, ktimes
+
+
 def phase_times(det, det_fast, det_planar, det_feats, block_inputs, chains, singles):
     """End-to-end times (pre-sized and letterboxed bs32@640, single 640) of
     the module forward and the pre-sized bs32@640 and single 640 of the fast
@@ -1146,6 +1555,9 @@ def main() -> int:
         "planar_mbconv": max(planar_one.values()),
         "planar_mbconv_chain": max(planar_many.values()),
     }
+    quant_dets, _ = quant_detectors(cfg)
+    int8_inputs = quant_kernel_inputs(quant_dets["library"]._quant, x)
+    errs.update(phase_kernels_int8(int8_inputs))
 
     at320 = dict(decode=cfg.decode, default_size=320)
     det320 = Detector.from_safetensors(FLAGSHIP, DetectorConfig(**at320))
@@ -1162,14 +1574,18 @@ def main() -> int:
     det_planar_cpu = Detector.from_safetensors(FLAGSHIP, DetectorConfig(model=planar_model, **at320), device="cpu")
     paths = [module_launches, phase_main_fast(det_fast, det_fast320, det_f32, d640, x, det_feats),
              phase_main_landmarks(),
-             phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640, x, det_feats)]
+             phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640, x, det_feats),
+             phase_main_quant(quant_dets, det, det_f32, d640, x, det_feats)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
-    # no engine calls the one-block planar kernel (as in the JAX package): it
-    # is on no path, and a launch of it on one would be a fault
-    on_path = {name: name != "planar_mbconv" for name in errs}
+    # no engine calls the one-block planar kernel (as in the JAX package), the
+    # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no
+    # conv of the quantized engine): they are on no path, and a launch of
+    # one of them on a path would be a fault
+    on_path = {name: name not in ("planar_mbconv", "int8_conv1x1", "int8_block_s2") for name in errs}
     if any((launches[name] > 0) != on_path[name] for name in errs):
         raise AssertionError(f"[main] launches {launches}: every kernel of the paths at least once, the others never")
     times, ktimes = phase_times(det, det_fast, det_planar, det_feats, block_inputs, chains, singles)
+    ktimes.update(phase_times_quant(quant_dets, det, int8_inputs, x)[1])
 
     sources = {
         "decode_feats_fused": ("tpucenterface_torch/csrc/decode.cu", "tpucenterface/decode/pallas_decode.py:134"),
@@ -1177,6 +1593,9 @@ def main() -> int:
         "sigmoid_pseudo_nms_fused": ("tpucenterface_torch/csrc/nms.cu", "tpucenterface/decode/pallas_nms.py:45"),
         "planar_mbconv": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:151"),
         "planar_mbconv_chain": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:303"),
+        "int8_conv1x1": ("tpucenterface_torch/csrc/int8_conv.cu", "tpucenterface/bench/probe_int8_conv.py:36"),
+        "int8_block_s2": ("tpucenterface_torch/csrc/int8_block.cu", "tpucenterface/bench/probe_fused_block.py:161"),
+        "int8_block_s1": ("tpucenterface_torch/csrc/int8_block.cu", "tpucenterface/bench/probe_fused_block.py:318"),
     }
     record = {
         "kernels": [

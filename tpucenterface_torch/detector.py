@@ -3,7 +3,8 @@
 Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
 `from_safetensors`, `_decode`, `_forward`, `results_to_detections`,
 `_identity_for`, `reload_weights`, `weights_version`, `detect`,
-`detect_batch`, `warmup`):
+`detect_batch`, `warmup`, `quantize`, `dequantize`, `stem_input_lut`) and
+`_export_scales`:
 
     host:   zero-pad the frame to a shape bucket, copy to the device
     device: letterbox+normalize -> backbone -> neck -> heads -> decode
@@ -27,8 +28,16 @@ Two switches of the config choose kernels of the port:
   sigmoid + pseudo-NMS kernel (`decode.fused_nms`) ahead of the reference
   top-K and gathers for a model with one.
 
-Not ported yet: `quantize`, `from_torch_pth`, the flip-TTA batch program and
-the space-to-depth stem.
+`quantize()` switches the forward to the W8A8 engine (`quant.QuantEngine`),
+calibrated on uint8 frames or installed from persisted scales;
+`quantize(fused_blocks=True)` (with `int8_dw=True`) runs its stride-1
+residual blocks through the int8 block kernel (`ops.int8_block`).
+`dequantize()` returns to the bf16 forward.
+
+Not ported yet: `from_torch_pth`, the flip-TTA batch program, the
+space-to-depth stem, and of `quantize` the QAT and AdaRound fine-tuning and
+the installation of fine-tuned parameters (`qat_steps`, `adaround_steps`,
+`quant_params` raise `NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from tpucenterface_torch.preprocess import (
     normalize_images,
     pad_to_bucket,
 )
+from tpucenterface_torch.quant.engine import QuantEngine, stem_input_lut
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_safetensors
 
@@ -67,6 +77,17 @@ from tpucenterface_torch.weights.io import load_safetensors
 # turns the kernel on, as it does for the fast engine, so that choosing the
 # engine chooses the kernel.
 PLANAR_CHAIN_RES = 80
+
+
+def _export_scales(eng: QuantEngine) -> Dict[str, Any]:
+    """The installable, persistable scales dict of a quantized engine: its
+    activation scales, its fixed "w:<tag>" weight scales, and the
+    "cfg:weight_bits" and "cfg:int8_dw" entries that make it self-describing."""
+    out = dict(eng.act_scales)
+    out.update({f"w:{t}": np.asarray(s) for t, s in eng.weight_scales.items()})
+    out["cfg:weight_bits"] = eng.weight_bits
+    out["cfg:int8_dw"] = int(eng.int8_dw)
+    return out
 
 
 class Detections(NamedTuple):
@@ -131,8 +152,11 @@ class Detector:
             self.model = self._engine.net
         else:
             self.model = load_network(variables, self.config.model, self.device)
-        # bumped on every weight swap (reload_weights); callers that cache
-        # anything derived from the weights key on it
+        self._quant: Optional[QuantEngine] = None  # set by quantize()
+        self._stem_lut: Optional[np.ndarray] = None
+        # bumped on every weight or forward swap (reload_weights, quantize,
+        # dequantize); callers that cache anything derived from the weights
+        # key on it
         self.weights_version = 0
 
     @classmethod
@@ -149,7 +173,8 @@ class Detector:
         """Swap the model weights. The new weights go through the same
         construction as `__init__` (BatchNorm fold, head fusion, engine
         build), so an engine's own block weights are rebuilt with the
-        network. Not synchronised with a detect call running in another
+        network. An active int8 forward is dropped: quantize() again for the
+        new weights. Not synchronised with a detect call running in another
         thread."""
         if safetensors_path is not None:
             variables = load_safetensors(safetensors_path)
@@ -163,7 +188,93 @@ class Detector:
         )
         self.variables, self.config = fresh.variables, fresh.config
         self.model, self._engine = fresh.model, fresh._engine
+        self._quant = None
         self.weights_version += 1
+
+    # ------------------------------------------------------------------ #
+    # the int8 forward
+    # ------------------------------------------------------------------ #
+
+    def quantize(
+        self,
+        calib_images: Optional[np.ndarray] = None,
+        calib_batches: Optional[list] = None,
+        size: Optional[int] = None,
+        int8_dw: bool = False,
+        scales: Optional[Dict[str, Any]] = None,
+        calib_percentile: Optional[float] = None,
+        qat_steps: int = 0,
+        adaround_steps: int = 0,
+        quant_params: Optional[Dict[str, Any]] = None,
+        weight_bits: int = 8,
+        fused_blocks: bool = False,
+    ) -> Dict[str, Any]:
+        """Switch this Detector to the W8A8 int8 forward (opt-in
+        post-training quantization) and return its persistable scales.
+
+        Calibration: raw uint8 images (N, H, W, 3), letterboxed and
+        normalized at `size` as detect does, or normalized NHWC batches; or
+        install persisted `scales` (self-describing: their "cfg:weight_bits"
+        and "cfg:int8_dw" entries win over the arguments). int8_dw: the
+        depthwise convs in int8 too, with per-channel scales. weight_bits: 8
+        down to 2. calib_percentile: clip-calibrate at that percentile of
+        |x|. fused_blocks (needs int8_dw): the stride-1 residual blocks run
+        through the int8 block kernel. The bf16 weights stay; dequantize()
+        returns to them."""
+        if qat_steps or adaround_steps or quant_params is not None:
+            raise NotImplementedError("the port has no QAT or AdaRound fine-tuning yet")
+        model = self.config.model
+        if not model.folded:
+            raise ValueError("quantize() requires folded inference weights")
+        if model.s2d_stem:
+            raise ValueError("quantize() does not support s2d stems (the int8 engine runs the standard 3x3/s2 stem)")
+        if model.head_conv <= 0:
+            raise ValueError(
+                "quantize() requires head_conv > 0 (the int8 engine runs the fused-head form, which needs the "
+                "hidden head conv)"
+            )
+        if scales is not None and "cfg:weight_bits" in scales:
+            weight_bits = int(scales["cfg:weight_bits"])
+        if scales is not None and "cfg:int8_dw" in scales:
+            int8_dw = bool(int(scales["cfg:int8_dw"]))
+        eng = QuantEngine(
+            self.variables, model, int8_dw=int8_dw, pp_cfg=self.config.preprocess, weight_bits=weight_bits,
+            fused_blocks=fused_blocks, device=self.device,
+        )
+        if scales is not None:
+            eng.set_scales(scales)
+        else:
+            if calib_batches is not None:
+                xs = [torch.as_tensor(b).to(self.device) for b in calib_batches]
+            elif calib_images is not None:
+                size = size or self.config.default_size
+                imgs = torch.from_numpy(np.ascontiguousarray(calib_images, np.uint8)).to(self.device)
+                hws = torch.tensor(imgs.shape[1:3], dtype=torch.int32, device=self.device).repeat(imgs.shape[0], 1)
+                with torch.inference_mode():
+                    x, _, _ = letterbox_normalize_batch(imgs, hws, size, self.config.preprocess, raw=model.stem_preprocess)
+                xs = [x]
+            else:
+                raise ValueError("pass calib_images (uint8), calib_batches, or scales")
+            eng.calibrate(xs, percentile=calib_percentile)
+        self._quant = eng
+        self.weights_version += 1
+        return _export_scales(eng)
+
+    def dequantize(self) -> None:
+        """Return to the bf16 forward."""
+        if self._quant is not None:
+            self._quant = None
+            self.weights_version += 1
+
+    def stem_input_lut(self) -> np.ndarray:
+        """(256, 3) int8 table of the stem's int8 input for each uint8 pixel
+        value (`quant.engine.stem_input_lut`), built once on this Detector's
+        device; it depends on the preprocess config alone."""
+        if self._quant is None or not self.config.model.stem_preprocess:
+            raise ValueError("stem_input_lut requires a quantize()d detector with the stem-baked preprocess")
+        if self._stem_lut is None:
+            self._stem_lut = stem_input_lut(self.config.preprocess, self.device)
+        return self._stem_lut
 
     # ------------------------------------------------------------------ #
     # the device path
@@ -186,6 +297,8 @@ class Detector:
         return boxes, scores, lm
 
     def _forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self._quant is not None:
+            return self._quant(x)
         if self._engine is not None:
             return self._engine(x)
         return self.model(x)

@@ -18,6 +18,12 @@ arguments of `ops.fused_mbconv` (`tpucenterface/model/fast_forward.py:129-147`
 without its channel padding); `chain_blocks_from_run` turns a run of them into
 the block list of `ops.planar_mbconv.planar_mbconv_chain`
 (`tpucenterface/model/planar_engine.py:164-173,218-227`).
+
+`int8_block_args` and `int8_conv_args` build the operands of the int8 kernels
+(`ops.int8_block`, `ops.int8_conv`) from a `quant.QuantEngine`'s quantized
+weights and installed scales, in the JAX probes' layout: epilogue scales
+`sx * sw` as the engine forms them, the inverse scales as float32
+reciprocals, the depthwise taps tap-major.
 """
 
 from __future__ import annotations
@@ -126,3 +132,59 @@ def chain_blocks_from_run(blocks: Sequence[Mapping[str, Any]], cin: int) -> List
         run.append({**dict(zip(("w1", "b1", "wd", "bd", "w2", "b2"), args)), "skip": cin == cout})
         cin = cout
     return run
+
+
+def _block_tags(i: int) -> Tuple[str, str, str]:
+    return f"b{i}.expand", f"b{i}.dw", f"b{i}.project"
+
+
+def int8_block_args(engine, i: int) -> Dict[str, Any]:
+    """The int8 block kernel's operands for block `i` of a quantized engine
+    with `int8_dw` (float32 and int8 numpy): we (Cmid, Cin), e_scale, e_bias,
+    e_inv_sdw, wd (9, Cmid) float32, d_scale, d_bias, d_inv_sproj, wp (Cout,
+    Cmid), p_scale, p_bias; vectors 1-D. A stride-1 block (B7) adds `inv_se`,
+    the reciprocal of its expand scale, and its project emits the engine's
+    own value. A stride-2 block (B6) takes its input quantized at its expand
+    scale, and its int8 output is requantized to the next block's expand
+    scale (p_scale and p_bias times that scale's reciprocal)."""
+    t, _, s, _ = engine.plan[i]
+    if t == 1:
+        raise ValueError(f"block {i} has no expand")
+    if not engine.int8_dw:
+        raise ValueError("the int8 block kernel needs an int8_dw engine")
+    tags = _block_tags(i)
+    (ke, swe), (kd, swd), (kp, swp) = (engine.quant_weight(tag) for tag in tags)
+    se, sdw, sp = (engine.act_scale(tag) for tag in tags)
+    bias = [engine.convs[tag].bias_np for tag in tags]
+    one = np.float32(1.0)
+    cmid = kd.shape[-1]
+    args = {
+        "we": np.ascontiguousarray(ke[0, 0].T),
+        "e_scale": se * swe, "e_bias": bias[0], "e_inv_sdw": one / sdw,
+        "wd": kd[:, :, 0, :].reshape(9, cmid).astype(np.float32),
+        "d_scale": sdw * swd, "d_bias": bias[1], "d_inv_sproj": np.full(cmid, one / sp, np.float32),
+        "wp": np.ascontiguousarray(kp[0, 0].T),
+        "p_scale": sp * swp, "p_bias": bias[2],
+    }
+    if s == 1:
+        return {"inv_se": one / se, **args}
+    inv_next = one / engine.act_scale(_block_tags(i + 1)[0])
+    args["p_scale"] = args["p_scale"] * inv_next
+    args["p_bias"] = args["p_bias"] * inv_next
+    return args
+
+
+def int8_conv_args(engine, i: int, consumer_tag: str) -> Dict[str, np.ndarray]:
+    """The int8 1x1 conv kernel's operands for block `i`'s project of a
+    quantized engine, its output requantized to `consumer_tag`'s activation
+    scale: w (Cout, Cin) int8, scale = (sx * sw) / s_consumer and bias =
+    b / s_consumer (float32, each through the reciprocal). Its input is the
+    block's depthwise output quantized at the project's scale."""
+    tag = _block_tags(i)[2]
+    kq, sw = engine.quant_weight(tag)
+    inv = np.float32(1.0) / engine.act_scale(consumer_tag)
+    return {
+        "w": np.ascontiguousarray(kq[0, 0].T),
+        "scale": (engine.act_scale(tag) * sw) * inv,
+        "bias": engine.convs[tag].bias_np * inv,
+    }

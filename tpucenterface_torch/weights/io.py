@@ -11,6 +11,10 @@ so this module reads the format itself:
 
 Keys are '/'-joined flax paths ('params/backbone/stem/conv/kernel'), split
 back into the nested {'params': ..., 'batch_stats': ...} tree.
+
+`save_quant_scales` / `load_quant_scales` persist a quantized Detector's
+scales as JSON (`tpucenterface/weights/io.py:141-168`): floats for per-tensor
+entries, lists for the per-channel depthwise ones.
 """
 
 from __future__ import annotations
@@ -78,3 +82,19 @@ def unflatten(flat: Dict[str, Any], sep: str = "/") -> Dict[str, Any]:
 def load_safetensors(path: str) -> Dict[str, Any]:
     """Nested {'params': ..., 'batch_stats': ...} tree of numpy arrays."""
     return unflatten(read_safetensors_flat(path))
+
+
+def save_quant_scales(scales: Dict[str, Any], path: str) -> None:
+    """Persist `Detector.quantize()` scales as JSON: per-tensor entries as
+    floats, per-channel (int8_dw depthwise) entries as lists. Calibrate once,
+    save, then `det.quantize(scales=load_quant_scales(path))` everywhere."""
+    out = {k: (v.tolist() if isinstance(v, np.ndarray) else float(v)) for k, v in scales.items()}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def load_quant_scales(path: str) -> Dict[str, Any]:
+    """Inverse of `save_quant_scales` (lists come back as float64 arrays)."""
+    with open(path) as f:
+        raw = json.load(f)
+    return {k: (np.asarray(v, np.float64) if isinstance(v, list) else float(v)) for k, v in raw.items()}
