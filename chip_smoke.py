@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
    `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/int8_conv.cu`,
-   `csrc/int8_block.cu`) with nvcc into build/kernels/, one nvcc per source,
-   all started together;
+   `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with nvcc into
+   build/kernels/, one nvcc per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
    tie-heavy inputs; the one-block planar kernel, the int8 1x1 conv and the
@@ -129,6 +129,30 @@ INT8_TC_OPS_PER_S = 1979e12
 # (bench.py:125 of the JAX package calibrates on eight frames).
 QUANT_S2_BLOCKS = [1, 3, 6, 13]
 QUANT_S1_BLOCKS = [2, 4, 5, 7, 8, 9, 11, 12, 14, 15]
+# B7's kernel phase beyond the flagship's blocks, each held bit-equal to the
+# plain version (name, (B, H, W, Cin, Cmid, Cout), tie-heavy, residual): maps
+# smaller than any tile, the 20x20 and 40x40 maps at bs1 and bs32 at both
+# wide shapes, Cmid off the chunk width, W one past a tile side, no
+# residual, ties at the fitted tiles. tests/test_torch_int8_kernels.py plans
+# every one of them on the CPU.
+B7_KERNEL_SHAPES = (
+    ("ragged 2x37x53 24->144->24", (2, 37, 53, 24, 144, 24), False, True),
+    ("160->960->160 2x13x7", (2, 13, 7, 160, 960, 160), False, True),
+    ("no residual 1x9x30 32->192->64", (1, 9, 30, 32, 192, 64), False, False),
+    ("ties 2x40x40 24->144->32", (2, 40, 40, 24, 144, 32), True, True),
+    ("1x1 map 24->144->24", (2, 1, 1, 24, 144, 24), False, True),
+    ("2x3 map 32->192->32", (3, 2, 3, 32, 192, 32), False, True),
+    *((f"{b}x{hw}x{hw} {c}->{6 * c}->{c}", (b, hw, hw, c, 6 * c, c), False, True)
+      for b in (1, 32) for hw in (20, 40) for c in (160, 96)),
+    ("Cmid 136, 2x20x20 32->136->32", (2, 20, 20, 32, 136, 32), False, True),
+    ("Cmid 200, 2x40x40 64->200->64", (2, 40, 40, 64, 200, 64), False, True),
+    ("W one past 16, 2x33x161 24->144->24", (2, 33, 161, 24, 144, 24), False, True),
+    ("W one past 20, 2x40x41 96->576->96", (2, 40, 41, 96, 576, 96), False, True),
+    ("W one past 10, 2x20x21 160->960->160", (2, 20, 21, 160, 960, 160), False, True),
+    ("no residual 2x20x20 160->960->160", (2, 20, 20, 160, 960, 160), False, False),
+    ("ties 2x40x40 96->576->96", (2, 40, 40, 96, 576, 96), True, True),
+    ("ties 2x20x20 160->960->160", (2, 20, 20, 160, 960, 160), True, True),
+)
 QUANT_CALIB_SEED, QUANT_CALIB_FRAMES = 21, 8
 # The quantized forward against the bf16 module forward on the same card, at
 # bs32 and bs128 @ 640: int8 activations move a weak peak or a score by more
@@ -327,7 +351,7 @@ def phase_build():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("decode", "mbconv", "nms", "planar", "int8_conv", "int8_block")
+    names = ("decode", "mbconv", "nms", "planar", "int8_conv", "int8_block", "int8_block_s1")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed, names))
@@ -707,7 +731,7 @@ def quant_kernel_inputs(eng, x):
     stride-2 block (its bf16 input quantized at its expand scale, NHWC); B7
     at each stride-1 residual block (its bf16 input). Also the NHWC inputs
     the library route times take."""
-    from tpucenterface_torch.ops.int8_block import nhwc_to_planar
+    from tpucenterface_torch.ops.int8_block import nhwc_to_planar, pack_int8_block_s1
     from tpucenterface_torch.weights.convert import int8_block_args, int8_conv_args
 
     dev = x.device
@@ -732,7 +756,8 @@ def quant_kernel_inputs(eng, x):
         "b5": (nhwc_to_planar(b0_dw), on(int8_conv_args(eng, 0, "b1.expand"))),
         "b5_nhwc": b0_dw,
         "b6": b6,
-        "b7": {i: (ys[i], on(int8_block_args(eng, i))) for i in QUANT_S1_BLOCKS},
+        "b7": {i: (ys[i], a, pack_int8_block_s1(**{k: v for k, v in a.items() if k != "inv_se"}))
+               for i, a in ((i, on(int8_block_args(eng, i))) for i in QUANT_S1_BLOCKS)},
         "ys": ys,
     }
 
@@ -775,7 +800,8 @@ def phase_kernels_int8(inputs):
     ragged maps with random operands, and on tie-heavy operands. Returns
     {kernel: max |err|} (0 or the run fails)."""
     from tpucenterface_torch.ops.int8_block import (
-        fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2,
+        fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2, pack_int8_block_s1,
+        plan_int8_block_s1,
     )
     from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
 
@@ -785,8 +811,9 @@ def phase_kernels_int8(inputs):
                      int8_conv1x1(x, **a), conv1x1_int8_plain(x, **a))
     for i, (x, a) in inputs["b6"].items():
         _check_bit_equal(f"int8_block_s2 block {i} bs32@640", int8_block_s2(x, **a), fused_block_int8_plain(x, **a))
-    for i, (x, a) in inputs["b7"].items():
-        _check_bit_equal(f"int8_block_s1 block {i} bs32@640", int8_block_s1(x, **a), fused_block_s1_plain(x, **a))
+    for i, (x, a, packed) in inputs["b7"].items():
+        _check_bit_equal(f"int8_block_s1 block {i} bs32@640", int8_block_s1(x, a["inv_se"], packed),
+                         fused_block_s1_plain(x, **a))
     gen = torch.Generator().manual_seed(8642)
     for what, (b, cin, p, cout), tie in (("ragged 3x24x1001 -> 40", (3, 24, 1001, 40), False),
                                          ("960 -> 160, P 77", (2, 960, 77, 160), False),
@@ -807,12 +834,7 @@ def phase_kernels_int8(inputs):
         lo, hi = (-3, 4) if tie else (-127, 128)
         x = torch.randint(lo, hi, (b, h, w, cin), generator=gen, dtype=torch.int8).to(dev)
         _check_bit_equal(f"int8_block_s2 {what}", int8_block_s2(x, **ops), fused_block_int8_plain(x, **ops))
-    for what, (b, h, w, cin, cmid, cout), tie, residual in (
-        ("ragged 2x37x53 24->144->24", (2, 37, 53, 24, 144, 24), False, True),
-        ("160->960->160 2x13x7", (2, 13, 7, 160, 960, 160), False, True),
-        ("no residual 1x9x30 32->192->64", (1, 9, 30, 32, 192, 64), False, False),
-        ("ties 2x40x40 24->144->32", (2, 40, 40, 24, 144, 32), True, True),
-    ):
+    for what, (b, h, w, cin, cmid, cout), tie, residual in B7_KERNEL_SHAPES:
         ops = _int8_block_ops(gen, cin, cmid, cout, dev, tie)
         if tie:  # odd integers times 0.5
             x = torch.randint(-7, 8, (b, h, w, cin), generator=gen).float().to(dev, torch.bfloat16)
@@ -820,7 +842,9 @@ def phase_kernels_int8(inputs):
         else:
             x = (2.0 * torch.randn(b, h, w, cin, generator=gen)).to(dev, torch.bfloat16)
             inv_se = 37.5
-        _check_bit_equal(f"int8_block_s1 {what}", int8_block_s1(x, inv_se, **ops, residual=residual),
+        plan = plan_int8_block_s1(b, h, w, cin, cmid, cout)
+        _check_bit_equal(f"int8_block_s1 {what} (tile {plan.tile_h}x{plan.tile_w}, CK {plan.ck}, {plan.warps} warps)",
+                         int8_block_s1(x, inv_se, pack_int8_block_s1(**ops), residual=residual),
                          fused_block_s1_plain(x, inv_se, **ops, residual=residual))
     return {"int8_conv1x1": 0.0, "int8_block_s2": 0.0, "int8_block_s1": 0.0}
 
@@ -1341,16 +1365,17 @@ def times_planar(chains, singles):
 
 def _int8_block_bound(x, a, stride):
     """(bound ms, by) of one int8 block launch: x and out once (int8 at
-    stride 2, bf16 at stride 1), the weights once; the expand (at the input's
-    positions) and project products on the int8 tensor cores, the depthwise's
-    multiply-adds at the float32 rate (the JAX kernels' own arithmetic)."""
+    stride 2, bf16 at stride 1), the weights once; every operation is on int8
+    operands (the expand at the input's positions, the depthwise's nine
+    multiply-adds an output, the project), so all of them at the card's int8
+    peak."""
     b, h, w, cin = x.shape
     cmid, cout = a["we"].shape[0], a["wp"].shape[0]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     esize = x.element_size()
     nbytes = esize * (b * h * w * cin + b * ho * wo * cout) + cmid * cin + cout * cmid + 9 * cmid * 4 + 4 * (6 * cmid + 2 * cout)
     products = 2 * (b * h * w * cin * cmid + b * ho * wo * cmid * cout)
-    return bound(nbytes, [(products, INT8_TC_OPS_PER_S), (2 * 9 * b * ho * wo * cmid, F32_OPS_PER_S)])
+    return bound(nbytes, [(products + 2 * 9 * b * ho * wo * cmid, INT8_TC_OPS_PER_S)])
 
 
 def times_int8(inputs, eng):
@@ -1378,16 +1403,19 @@ def times_int8(inputs, eng):
                                   iters=30),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-    for name, key, kernel, plain, stride in (("int8_block_s2", "b6", int8_block_s2, fused_block_int8_plain, 2),
-                                             ("int8_block_s1", "b7", int8_block_s1, fused_block_s1_plain, 1)):
+    b7 = {i: (x, a, lambda x=x, a=a, packed=packed: int8_block_s1(x, a["inv_se"], packed))
+          for i, (x, a, packed) in inputs["b7"].items()}
+    b6 = {i: (x, a, lambda x=x, a=a: int8_block_s2(x, **a)) for i, (x, a) in inputs["b6"].items()}
+    for name, runs, plain, stride in (("int8_block_s2", b6, fused_block_int8_plain, 2),
+                                      ("int8_block_s1", b7, fused_block_s1_plain, 1)):
         shapes = []
-        for i, (x, a) in inputs[key].items():
+        for i, (x, a, kernel) in runs.items():
             bound_ms, bound_by = _int8_block_bound(x, a, stride)
             y = inputs["ys"][i]
             with torch.inference_mode():
                 shapes.append({
                     "block": i, "x": list(x.shape), "cmid": a["we"].shape[0], "cout": a["wp"].shape[0],
-                    "ms": cuda_ms(lambda: kernel(x, **a), iters=20),
+                    "ms": cuda_ms(kernel, iters=20),
                     "plain_ms": cuda_ms(lambda: plain(x, **a), iters=5, warmup=1),
                     "library_ms": cuda_ms(lambda: eng.run_block(i, y), iters=20),
                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1595,7 +1623,7 @@ def main() -> int:
         "planar_mbconv_chain": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:303"),
         "int8_conv1x1": ("tpucenterface_torch/csrc/int8_conv.cu", "tpucenterface/bench/probe_int8_conv.py:36"),
         "int8_block_s2": ("tpucenterface_torch/csrc/int8_block.cu", "tpucenterface/bench/probe_fused_block.py:161"),
-        "int8_block_s1": ("tpucenterface_torch/csrc/int8_block.cu", "tpucenterface/bench/probe_fused_block.py:318"),
+        "int8_block_s1": ("tpucenterface_torch/csrc/int8_block_s1.cu", "tpucenterface/bench/probe_fused_block.py:318"),
     }
     record = {
         "kernels": [

@@ -14,7 +14,12 @@ the port against the JAX package.
   values land on .5) pin round half to even;
 - the NHWC and JAX-layout entry points of each plain version agree, and the
   wrappers take the plain versions for CPU tensors;
-- `quant.int8_ops` against int64 numpy sums, padding cases included.
+- `quant.int8_ops` against int64 numpy sums, padding cases included;
+- B7's launch plan (`plan_int8_block_s1`) covers every output position once
+  and splits the project over the warps, within the card's limits, at the
+  flagship's blocks, at `chip_smoke.py`'s shapes and on a hypothesis grid;
+  its packed operands unpack to the JAX ones with zero padding, and the
+  packed depthwise tap words give the depthwise sums.
 
 All of it is integer-exact up to float32 epilogues that both sides round
 alike, so every comparison is bit for bit.
@@ -25,6 +30,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+import chip_smoke
 
 from tpucenterface.bench.probe_fused_block import (
     fused_block_ref,
@@ -45,7 +54,16 @@ from tpucenterface_torch.ops.int8_block import (
     fused_block_s1_plain_planar,
     int8_block_s1,
     int8_block_s2,
+    MAX_SMEM,
+    S1_VARIANTS,
+    s1_plans,
+    S1Layout,
     nhwc_to_parity_planar,
+    pack_int8_block_s1,
+    plan_int8_block_s1,
+    s1_chunk_width,
+    s1_smem_bytes,
+    unpack_int8_block_s1,
     nhwc_to_planar,
     parity_planar_to_nhwc,
     planar_to_nhwc,
@@ -234,7 +252,7 @@ def test_b7_plain_matches_pallas_kernel_and_ref(tie):
     nhwc = fused_block_s1_plain(xb, inv_se, *ops)
     np.testing.assert_array_equal(nhwc_to_planar(nhwc).float().numpy(), ref)
     before = int8_block_s1.launches
-    assert torch.equal(int8_block_s1(xb, inv_se, *ops), nhwc)
+    assert torch.equal(int8_block_s1(xb, inv_se, pack_int8_block_s1(*ops)), nhwc)
     assert int8_block_s1.launches == before
 
 
@@ -261,8 +279,9 @@ def test_layout_helpers_match_jax():
 def test_block_wrappers_check_their_operands():
     prm, xb, inv_se = _b7_case(False)
     ops = [_t(prm[k]) for k in KEYS]
+    packed = pack_int8_block_s1(*ops)
     with pytest.raises(TypeError, match="bf16"):
-        int8_block_s1(xb.float(), inv_se, *ops)
+        int8_block_s1(xb.float(), inv_se, packed)
     with pytest.raises(TypeError, match="int8"):
         int8_block_s2(xb, *ops)
     bad = list(ops)
@@ -270,7 +289,7 @@ def test_block_wrappers_check_their_operands():
     with pytest.raises(ValueError, match="e_scale"):
         fused_block_s1_plain(xb, inv_se, *bad)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        int8_block_s1(xb.to("meta"), inv_se, *ops)
+        int8_block_s1(xb.to("meta"), inv_se, packed)
 
 
 # --------------------------------------------------------------------------- #
@@ -368,3 +387,172 @@ def test_int_mm_takes_a_column_major_second_operand(monkeypatch):
     assert seen == [((16, 1), (1, 16), (16, 96))]
     _mm(a, w.contiguous())
     assert seen[1][1] == (1, 16)
+
+
+# --------------------------------------------------------------------------- #
+# B7's launch plan and packed operands (csrc/int8_block_s1.cu)
+# --------------------------------------------------------------------------- #
+
+# the ten stride-1 residual blocks of the default model: (map at 640, Cin,
+# Cmid, Cout); at 320 every map is half as wide
+FLAGSHIP_S1 = ((160, 24, 144, 24), (80, 32, 192, 32), (80, 32, 192, 32), (40, 64, 384, 64), (40, 64, 384, 64),
+               (40, 64, 384, 64), (40, 96, 576, 96), (40, 96, 576, 96), (20, 160, 960, 160), (20, 160, 960, 160))
+PLAN_SHAPES = ([(32, hw, hw, cin, cmid, cout) for hw, cin, cmid, cout in FLAGSHIP_S1]
+               + [(32, hw // 2, hw // 2, cin, cmid, cout) for hw, cin, cmid, cout in FLAGSHIP_S1]
+               + [shape for _, shape, _, _ in chip_smoke.B7_KERNEL_SHAPES])
+
+
+def _check_plan(b, h, w, cin, cmid, cout, plan=None):
+    """The plan (the planner's unless given) covers every output position of
+    the batch exactly once, as the kernel indexes its blocks, and every (M
+    tile, N tile) of a tile's project once over the warps; its shared memory
+    and grid fit."""
+    plan = plan or plan_int8_block_s1(b, h, w, cin, cmid, cout)
+    th, tw = plan.tile_h, plan.tile_w
+    ty, tx = -(-h // th), -(-w // tw)
+    assert plan.grid == (b * ty * tx, 1, 1) and plan.grid[0] < 2 ** 31
+    assert plan.ck == s1_chunk_width(cmid) and plan.ck in (32, 64)
+    assert plan.smem_bytes == s1_smem_bytes(th, tw, S1Layout(cin, cmid, cout, plan.ck)) <= MAX_SMEM
+    assert (plan.warps, plan.pm, plan.pn) in S1_VARIANTS
+    # every block's tile, position p = oy * tw + ox, masked to the map
+    bid = np.arange(plan.grid[0])
+    img, t = bid // (ty * tx), bid % (ty * tx)
+    oy0, ox0 = (t // tx) * th, (t % tx) * tw
+    p = np.arange(th * tw)
+    gy = oy0[:, None] + p[None, :] // tw
+    gx = ox0[:, None] + p[None, :] % tw
+    keep = (gy < h) & (gx < w)
+    flat = (np.broadcast_to(img[:, None], gy.shape) * h + gy) * w + gx
+    counts = np.bincount(flat[keep], minlength=b * h * w)
+    assert counts.shape == (b * h * w,) and (counts == 1).all()
+    # the project's rectangles: warp -> (mg, ng), PM x PN tiles each
+    mt, nt = -(-(th * tw) // 16), cout // 8
+    ngroups = -(-nt // plan.pn)
+    owned = np.zeros((mt, nt), np.int64)
+    for warp in range(plan.warps):
+        mg, ng = divmod(warp, ngroups)
+        for i in range(plan.pm):
+            for j in range(plan.pn):
+                m, n = mg * plan.pm + i, ng * plan.pn + j
+                if m < mt and n < nt:
+                    owned[m, n] += 1
+    assert (owned == 1).all()
+    return plan
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[f"{b}x{h}x{w}_{ci}-{cm}-{co}" for b, h, w, ci, cm, co in PLAN_SHAPES])
+def test_b7_plan_covers_the_map(shape):
+    plan = _check_plan(*shape)
+    b, h, w = shape[:3]
+    if (h, w) == (20, 20) and b == 32:  # the 20x20 blocks: more than one tile an image
+        assert plan.grid[0] >= 2 * b
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:10:3], ids=lambda s: "x".join(map(str, s)))
+def test_b7_every_candidate_plan_covers_the_map(shape):
+    """Every plan the planner weighs (and `kernels/sweep_b7.py` times) is one
+    the kernel takes, and the planner's choice is among them."""
+    plans = list(s1_plans(*shape))
+    assert plan_int8_block_s1(*shape) in plans
+    for plan in plans:
+        _check_plan(*shape, plan=plan)
+
+
+@settings(max_examples=150, deadline=None, derandomize=True)
+@given(h=st.integers(1, 200), w=st.integers(1, 200), cin=st.sampled_from([8, 24, 32, 64, 96, 160]),
+       cmid=st.integers(8, 960), cout=st.integers(1, 40).map(lambda n: 8 * n), b=st.integers(1, 2))
+def test_b7_plan_covers_the_map_on_a_grid(h, w, cin, cmid, cout, b):
+    _check_plan(b, h, w, cin, cmid, cout)
+
+
+def _s1_ops(cin, cmid, cout, seed):
+    rng = np.random.RandomState(seed)
+    prm = make_params(cin, cmid, cout, seed=seed)
+    prm["wd"] = rng.randint(-127, 128, (9, cmid)).astype(np.float32)
+    return [_t(prm[k]) for k in KEYS]
+
+
+@pytest.mark.parametrize("cin,cmid,cout", [(24, 144, 24), (32, 136, 32), (64, 200, 64), (160, 960, 160), (8, 8, 16)],
+                         ids=["24-144-24", "Cmid136", "Cmid200", "160-960-160", "8-8-16"])
+def test_b7_packing_round_trip(cin, cmid, cout):
+    """pack_int8_block_s1 unpacks to the JAX-layout operands, and every byte
+    outside the operands' places (row padding, channels past Cmid, the tap
+    words' fourth byte, the tail) is zero."""
+    ops = _s1_ops(cin, cmid, cout, seed=cmid)
+    packed = pack_int8_block_s1(*ops)
+    lay = packed.layout
+    assert packed.data.dtype == torch.uint8 and packed.data.numel() == lay.nbytes
+    assert lay.chunk_bytes % 16 == 0 and lay.off_wp % 16 == 0 and lay.off_taps % 16 == 0 and lay.off_vec % 16 == 0
+    back = unpack_int8_block_s1(packed)
+    for k, v in zip(KEYS, ops):
+        assert torch.equal(back[k], v.reshape(back[k].shape)), k
+    used = np.zeros(lay.nbytes, bool)
+    for k in range(lay.nchunks):
+        n = min(lay.ck, cmid - k * lay.ck)
+        base = k * lay.chunk_bytes
+        we = used[base : base + lay.off_wp].reshape(lay.ck, lay.xs)
+        we[:n, :cin] = True
+        wp = used[base + lay.off_wp : base + lay.off_taps].reshape(cout, lay.dss)
+        wp[:, :n] = True
+        taps = used[base + lay.off_taps : base + lay.off_vec].reshape(3, lay.ck, 4)
+        taps[:, :n, :3] = True
+        vec = used[base + lay.off_vec : base + lay.chunk_bytes].reshape(6, lay.ck, 4)
+        vec[:, :n] = True
+    used[lay.nchunks * lay.chunk_bytes : lay.nchunks * lay.chunk_bytes + 8 * cout] = True
+    assert not packed.data.numpy()[~used].any()
+
+
+@pytest.mark.parametrize("case", ["random", "extremes"])
+def test_b7_packed_taps_give_the_depthwise_sums(case):
+    """Each channel's tap word (w0, w1, w2, 0) of row dy, summed as byte
+    products with the four bytes of a window starting at column x - 1 (the
+    fourth byte arbitrary), row by row, equals dwconv3x3_int8's sums bit for
+    bit: the kernel's three __dp4a an output."""
+    rng = np.random.RandomState(11)
+    cin, cmid, cout = 8, 40, 8
+    ops = _s1_ops(cin, cmid, cout, seed=3)
+    if case == "extremes":
+        ops[4] = _t(rng.choice([-127, 127], (9, cmid)).astype(np.float32))
+        e = rng.choice([-127, 127], (2, 7, 9, cmid)).astype(np.int8)
+    else:
+        e = rng.randint(-127, 128, (2, 7, 9, cmid)).astype(np.int8)
+    packed = pack_int8_block_s1(*ops)
+    lay = packed.layout
+    raw = packed.data.numpy()
+    words = np.concatenate([raw[k * lay.chunk_bytes + lay.off_taps : k * lay.chunk_bytes + lay.off_vec]
+                            .reshape(3, lay.ck, 4) for k in range(lay.nchunks)], axis=1)[:, :cmid].view(np.int8)
+    assert not words[:, :, 3].any()
+    b, h, w, _ = e.shape
+    # the halo'd rows, one byte past the right edge of garbage
+    ep = np.pad(e.astype(np.int64), ((0, 0), (1, 1), (1, 2), (0, 0)))
+    ep[:, :, -1] = rng.randint(-127, 128, ep[:, :, -1].shape)
+    got = np.zeros((b, h, w, cmid), np.int64)
+    for dy in range(3):
+        for i in range(4):
+            got += ep[:, dy : dy + h, i : i + w] * words[dy, :, i].astype(np.int64)
+    want = dwconv3x3_int8(_t(e), ops[4].reshape(3, 3, cmid).to(torch.int8), 1).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "extremes":
+        assert np.abs(got).max() == 9 * 127 * 127
+
+
+def test_b7_wrapper_contract_on_the_cpu():
+    """A CPU tensor takes the plain version on the unpacked operands (equal
+    to fused_block_s1_plain on the JAX ones, no launch counted); a wrong
+    dtype, channel count, operand type or a non-contiguous x raises."""
+    prm, xb, inv_se = _b7_case(False, b=2, h=11, w=23)
+    ops = [_t(prm[k]) for k in KEYS]
+    packed = pack_int8_block_s1(*ops)
+    before = int8_block_s1.launches
+    for residual in (True, False):
+        got = int8_block_s1(xb, inv_se, packed, residual=residual)
+        assert torch.equal(got, fused_block_s1_plain(xb, inv_se, *ops, residual=residual))
+    assert int8_block_s1.launches == before
+    with pytest.raises(TypeError, match="bf16"):
+        int8_block_s1(xb.to(torch.float16), inv_se, packed)
+    with pytest.raises(ValueError, match="channels"):
+        int8_block_s1(xb[..., :16].contiguous(), inv_se, packed)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_block_s1(xb.transpose(1, 2), inv_se, packed)
+    with pytest.raises(TypeError, match="pack_int8_block_s1"):
+        int8_block_s1(xb, inv_se, ops)

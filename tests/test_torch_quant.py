@@ -272,10 +272,12 @@ def test_fused_blocks_route_on_cpu(folded, data, jax_engines, monkeypatch):
     fused.set_scales(scales)
     assert fused.fused_block_indices() == FUSED_BLOCKS and lib.fused_block_indices() == []
     calls = []
+    wrapper = ib.int8_block_s1
 
-    def counting(x, *args, **kw):
+    def counting(x, inv_se, packed, **kw):
         calls.append(tuple(x.shape))
-        return ib.fused_block_s1_plain(x, *args, **kw)
+        assert isinstance(packed, ib.PackedInt8BlockS1)
+        return wrapper(x, inv_se, packed, **kw)
 
     monkeypatch.setattr(ib, "int8_block_s1", counting)
     x = torch.from_numpy(data[1] * 40).to(torch.bfloat16)
@@ -443,7 +445,7 @@ def test_import_leaves_jax_out():
         "tpucenterface_torch.ops.planar_mbconv, tpucenterface_torch.model.planar_engine, "
         "tpucenterface_torch.quant, tpucenterface_torch.quant.engine, tpucenterface_torch.quant.int8_ops, "
         "tpucenterface_torch.ops.int8_conv, tpucenterface_torch.ops.int8_block, tpucenterface_torch.weights.convert, "
-        "tpucenterface_torch.weights.io; "
+        "tpucenterface_torch.weights.io, tpucenterface_torch.kernels.sweep_b7; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

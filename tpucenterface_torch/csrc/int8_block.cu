@@ -1,35 +1,33 @@
-// The int8 MobileNetV2 block in one kernel, NHWC, for Hopper (sm_90a).
+// The stride-2 int8 MobileNetV2 block (B6) in one kernel, NHWC, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernels of tpucenterface/bench/probe_fused_block.py:
-//   stride 2 (make_fused_block_kernel, B6): x (B, H, W, Cin) int8 -> int8
-//   stride 1 (make_fused_block_s1_kernel, B7): x (B, H, W, Cin) bf16 -> bf16
-// With per-channel float32 vectors (the JAX kernels' operands, channel-major):
-//   B7 only: x_q = clip(rint(x * inv_se), -127, 127)
+// Replaces make_fused_block_kernel of tpucenterface/bench/probe_fused_block.py:
+// x (B, H, W, Cin) int8 -> out (B, Ho, Wo, Cout) int8, Ho = (H - 1) / 2 + 1.
+// With per-channel float32 vectors (the JAX kernel's operands, channel-major):
 //   e  = clip(rint(clip(acc_e * e_scale + e_bias, 0, 6) * e_inv), -127, 127)
-//        acc_e = sum_k x_q[k] * we[c, k]                     1x1 expand
+//        acc_e = sum_k x[k] * we[c, k]                       1x1 expand
 //   d  = clip(rint(clip(acc_d * d_scale + d_bias, 0, 6) * d_inv), -127, 127)
-//        acc_d = sum of the nine taps e * wd[tap, c]         3x3 depthwise
-//   yp = acc_p * p_scale + p_bias, acc_p = sum_c d[c] * wp[o, c]
-//   B6: out = clip(rint(yp), -127, 127)      B7: out = bf16(yp [+ x])
+//        acc_d = sum of the nine taps e * wd[tap, c]         3x3 depthwise, stride 2
+//   out = clip(rint(acc_p * p_scale + p_bias), -127, 127), acc_p = sum_c d[c] * wp[o, c]
 // e is zero at the map's padding positions. Every product and every sum is
 // rounded on its own (__fmul_rn, __fadd_rn; nvcc would contract them into
-// FMAs, which the JAX functions do not do); rint rounds half to even. The
-// depthwise taps are integers, so the JAX kernels' float32 multiply-adds are
+// FMAs, which the JAX function does not do); rint rounds half to even. The
+// depthwise taps are integers, so the JAX kernel's float32 multiply-adds are
 // exact (|9 * 127 * 127| < 2^24) and equal the int32 sums taken here.
+// The stride-1 block (B7) has its own kernel, csrc/int8_block_s1.cu.
 //
 // Design (that of csrc/mbconv.cu, the bf16 block): one thread block (8 warps)
-// per tile of 16 output columns by 16 (stride 1) or 8 (stride 2) output rows
-// of one image. The halo'd input tile (18x18 or 17x33 positions) sits in
-// shared memory as int8 for the whole block; B7 quantizes it on the way in.
-// The expanded channels are walked in chunks of CK (32 or 64):
+// per tile of 16 output columns by 8 output rows of one image. The halo'd
+// input tile (17x33 positions) sits in shared memory as int8 for the whole
+// block. The expanded channels are walked in chunks of CK (32 or 64):
 //   load    the chunk's expand and project weights, depthwise taps, vectors;
 //   stage A expand every halo position for the chunk with mma.sync.m16n8k32
 //           (s8 x s8 -> s32), requantize to int8, zero the positions outside
 //           the image, store in shared memory;
-//   stage B each warp owns one or two output rows (16-position M tiles); a
-//           thread computes the depthwise for exactly the (position, channel)
-//           pairs of its A fragments of the project product, with __dp4a on
-//           one byte lane of the taps at a time, requantizes, and packs them
+//   stage B each warp owns one output row (a 16-position M tile); a thread
+//           computes the depthwise for exactly the (position, channel) pairs
+//           of its A fragments of the project product, with __dp4a on one
+//           byte lane of the taps at a time, requantizes, and packs them
 //           straight into
 //   stage C the project mma, whose int32 sums (16 positions x up to 96
 //           output channels per M tile) stay in registers across all chunks.
@@ -38,14 +36,13 @@
 // and B. Channels past the ends are zero in shared memory (zero weights and
 // vectors give e = 0 and d = 0); ragged tile edges are masked on store.
 //
-// Bound on an H100 SXM: bytes at the model's shapes. The block reads x once
-// and writes out once against 2*(Cin*Ce + 9*Ce + Ce*Cout) operations per
-// position, the depthwise on the integer pipes; this first version is held
-// back by the halo recomputation (1.27x the expand at stride 1), by the
-// byte-lane depthwise (about two instructions a multiply-add) and by one
-// resident block per SM at the wide shapes. wgmma and TMA are later work.
+// Bound on an H100 SXM: bytes at three of the model's four shapes, the int8
+// operations at the widest (block 13). The block reads x once and writes out
+// once against 2*(Cin*Ce + 9*Ce/4 + Ce*Cout/4) operations per input position,
+// all on int8 operands; this version is held back by the halo, by the byte-lane
+// depthwise (about two instructions a multiply-add) and by one resident block
+// per SM at the wide shapes. It is on no path of the port.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,7 +53,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90
 
 struct Params {
-  const void* x;              // (B, H, W, Cin): bf16 at stride 1, int8 at stride 2
+  const int8_t* x;            // (B, H, W, Cin)
   const int8_t* we;           // (Cmid, Cin)
   const float* e_scale;       // (Cmid), and the five vectors below
   const float* e_bias;
@@ -68,12 +65,10 @@ struct Params {
   const int8_t* wp;           // (Cout, Cmid)
   const float* p_scale;       // (Cout)
   const float* p_bias;
-  float inv_se;               // stride 1: the input's quantization multiplier
-  void* out;                  // (B, Ho, Wo, Cout): bf16 at stride 1, int8 at stride 2
+  int8_t* out;                // (B, Ho, Wo, Cout)
   int B, H, W, Ho, Wo, Cin, Cmid, Cout;
   int cin_pad;                // Cin rounded up to 32
   int groups;                 // output-channel groups in grid.z
-  int residual;               // stride 1: add x (zero past Cin)
 };
 
 template <int S>
@@ -82,7 +77,7 @@ struct Tile {
   static constexpr int OW = 16;                     // output columns
   static constexpr int IH = (OH - 1) * S + 3;       // halo'd input rows
   static constexpr int IW = (OW - 1) * S + 3;
-  static constexpr int NPOS = IH * IW;              // 324 or 561
+  static constexpr int NPOS = IH * IW;              // 561 at stride 2
   static constexpr int MT = OH / kWarps;            // output rows (M tiles) per warp
   static constexpr int HALO_MT = (NPOS + 15) / 16;
 };
@@ -169,21 +164,7 @@ int8_block_kernel(const Params p) {
       uint2 v = make_uint2(0u, 0u);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && seg * 8 < Cin) {
         const size_t off = ((static_cast<size_t>(img) * H + gy) * W + gx) * Cin + seg * 8;
-        if constexpr (S == 1) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.x) + off);
-          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-          uint32_t word[2];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float2 f0 = __bfloat1622float2(h2[2 * j]);
-            const float2 f1 = __bfloat1622float2(h2[2 * j + 1]);
-            word[j] = pack2(clip127(__fmul_rn(f0.x, p.inv_se)), clip127(__fmul_rn(f0.y, p.inv_se))) |
-                      (pack2(clip127(__fmul_rn(f1.x, p.inv_se)), clip127(__fmul_rn(f1.y, p.inv_se))) << 16);
-          }
-          v = make_uint2(word[0], word[1]);
-        } else {
-          v = *reinterpret_cast<const uint2*>(static_cast<const int8_t*>(p.x) + off);
-        }
+        v = *reinterpret_cast<const uint2*>(p.x + off);
       }
       *reinterpret_cast<uint2*>(xs + pos * XS + seg * 8) = v;
     }
@@ -331,7 +312,7 @@ int8_block_kernel(const Params p) {
     }
   }
 
-  // ---- epilogue: scale + bias [+ residual], round, masked store ---------------
+  // ---- epilogue: scale + bias, round, masked store -----------------------------
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt) {
     const int gy = oy0 + warp * T::MT + mt;
@@ -344,23 +325,10 @@ int8_block_kernel(const Params p) {
       for (int nt = 0; nt < NT; ++nt) {
         const int c = co0 + nt * 8 + 2 * tig;
         if (nt >= nt_used || c >= Cout) continue;
-        float v0 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][nt][2 * half]), p.p_scale[c]), p.p_bias[c]);
-        float v1 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][nt][2 * half + 1]), p.p_scale[c + 1]),
-                             p.p_bias[c + 1]);
-        if constexpr (S == 1) {
-          if (p.residual && c < Cin) {
-            const __nv_bfloat162 r =
-                *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p.x) + pix * Cin + c);
-            const float2 rf = __bfloat1622float2(r);
-            v0 = __fadd_rn(v0, rf.x);
-            v1 = __fadd_rn(v1, rf.y);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + pix * Cout + c) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(p.out) + pix * Cout + c) =
-              static_cast<uint16_t>(pack2(clip127(v0), clip127(v1)));
-        }
+        const float v0 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][nt][2 * half]), p.p_scale[c]), p.p_bias[c]);
+        const float v1 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][nt][2 * half + 1]), p.p_scale[c + 1]),
+                                   p.p_bias[c + 1]);
+        *reinterpret_cast<uint16_t*>(p.out + pix * Cout + c) = static_cast<uint16_t>(pack2(clip127(v0), clip127(v1)));
       }
     }
   }
@@ -398,23 +366,20 @@ int launch_groups(Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// Launches the block on `stream`; returns cudaGetLastError() as an int.
-// x (B,H,W,Cin) contiguous, bf16 and 16-byte aligned at stride 1, int8 and
-// 8-byte aligned at stride 2; out (B,Ho,Wo,Cout), Ho = (H-1)/stride + 1;
-// weights and vectors as in Params, contiguous; Cin and Cout multiples of 8;
-// the residual (stride 1 only) needs Cout >= Cin.
+// Launches the stride-2 block on `stream`; returns cudaGetLastError() as an
+// int. x (B,H,W,Cin) int8 contiguous, 8-byte aligned; out (B,Ho,Wo,Cout) int8,
+// Ho = (H-1)/2 + 1; weights and vectors as in Params, contiguous; Cin and Cout
+// multiples of 8.
 extern "C" int tcf_int8_block(
     const void* x, const void* we, const void* e_scale, const void* e_bias, const void* e_inv, const void* wd,
     const void* d_scale, const void* d_bias, const void* d_inv, const void* wp, const void* p_scale,
-    const void* p_bias, float inv_se, void* out,
-    int B, int H, int W, int Cin, int Cmid, int Cout, int stride, int residual, void* stream) {
+    const void* p_bias, void* out, int B, int H, int W, int Cin, int Cmid, int Cout, void* stream) {
   const long long blocks_z = static_cast<long long>(B) * (Cout <= 32 ? 1 : (Cout + 95) / 96);
-  if (B < 1 || H < 1 || W < 1 || Cin < 8 || Cin % 8 || Cmid < 1 || Cout < 8 || Cout % 8 || blocks_z > 65535 ||
-      (stride != 1 && stride != 2) || (residual && (stride != 1 || Cout < Cin))) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 8 || Cin % 8 || Cmid < 1 || Cout < 8 || Cout % 8 || blocks_z > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.x = x;
+  p.x = static_cast<const int8_t*>(x);
   p.we = static_cast<const int8_t*>(we);
   p.e_scale = static_cast<const float*>(e_scale);
   p.e_bias = static_cast<const float*>(e_bias);
@@ -426,14 +391,11 @@ extern "C" int tcf_int8_block(
   p.wp = static_cast<const int8_t*>(wp);
   p.p_scale = static_cast<const float*>(p_scale);
   p.p_bias = static_cast<const float*>(p_bias);
-  p.inv_se = inv_se;
-  p.out = out;
+  p.out = static_cast<int8_t*>(out);
   p.B = B; p.H = H; p.W = W;
-  p.Ho = (H - 1) / stride + 1;
-  p.Wo = (W - 1) / stride + 1;
+  p.Ho = (H - 1) / 2 + 1;
+  p.Wo = (W - 1) / 2 + 1;
   p.Cin = Cin; p.Cmid = Cmid; p.Cout = Cout;
   p.cin_pad = (Cin + 31) / 32 * 32;
-  p.residual = residual;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return stride == 1 ? launch_groups<1>(p, s) : launch_groups<2>(p, s);
+  return launch_groups<2>(p, static_cast<cudaStream_t>(stream));
 }

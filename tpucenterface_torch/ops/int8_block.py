@@ -1,6 +1,7 @@
-"""The int8 MobileNetV2 block in one kernel: the CUDA kernel
-`csrc/int8_block.cu` (stride 2, B6, and stride 1, B7), its plain versions and
-the JAX layout's helpers.
+"""The int8 MobileNetV2 block in one kernel: the CUDA kernels
+`csrc/int8_block.cu` (stride 2, B6) and `csrc/int8_block_s1.cu` (stride 1,
+B7), their plain versions, B7's launch plan and packed operands, and the JAX
+layout's helpers.
 
 Replaces the TPU kernels of `tpucenterface/bench/probe_fused_block.py`:
 - `make_fused_block_kernel` (B6): int8 in, stride-2 block, int8 out;
@@ -26,22 +27,28 @@ float32 multiply-adds and the port's int32 ones give the same sums.
 Layouts. The TPU kernels take planar (B, C, P) tensors, B6's input as
 space-to-depth parity planes (`nhwc_to_parity_planar`) and both with halo'd
 band copies (`pad_bands`): devices of Mosaic's weak strided lane access and
-Pallas's disjoint blocks. The CUDA kernel reads the engine's NHWC tensors
-and its halo'd tile directly. The plain versions take NHWC
+Pallas's disjoint blocks. The CUDA kernels read the engine's NHWC tensors
+and their halo'd tiles directly. The plain versions take NHWC
 (`fused_block_int8_plain`, `fused_block_s1_plain`) and the JAX layout
 (`*_planar`), so the CPU tests hold them to the JAX functions; weights and
 vectors take the JAX layout in both ((C,) or (C, 1) vectors).
 
-B7 runs on the quantized engine's path (`QuantEngine(fused_blocks=True)`);
-B6 is on no path: its int8 output cannot feed the residual block after each
-stride-2 block, which needs the bf16 value as its skip input.
+B7 takes its operands packed once (`pack_int8_block_s1`: chunk-major, padded,
+16-byte aligned, the depthwise taps of a row in one word) and a launch plan
+that `plan_int8_block_s1` fits to the map (the tile, the chunk width, the
+warps and the project's split over them); `unpack_int8_block_s1` gives the
+JAX-layout operands back. B7 runs on the quantized engine's path
+(`QuantEngine(fused_blocks=True)`); B6 is on no path: its int8 output cannot
+feed the residual block after each stride-2 block, which needs the bf16
+value as its skip input.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Union
+from dataclasses import dataclass
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -171,60 +178,285 @@ def fused_block_s1_plain_planar(x_planar, inv_se, *operands, hw: int, residual: 
     return nhwc_to_planar(fused_block_s1_plain(x, inv_se, *operands, residual=residual))
 
 
+
+
 # ------------------------------------------------------------------------- #
-# the kernel
+# B7's launch plan and packed operands (csrc/int8_block_s1.cu)
 # ------------------------------------------------------------------------- #
 
-_P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_SMEM = 232448   # bytes of shared memory a block may use on sm_90
+NUM_SMS = 132       # H100 SXM
+# (warps, PM, PN): the project rectangles a warp may own, PM M tiles of 16
+# positions by PN N tiles of 8 output channels (csrc/int8_block_s1.cu,
+# `dispatch`), and the blocks an SM holds of each at its launch bounds (8
+# warps with 8 or 16 mma tiles a warp, 16 warps at 128 registers).
+S1_BLOCKS_PER_SM = {(8, 2, 4): 3, (8, 2, 8): 2, (16, 1, 12): 1}
+S1_VARIANTS = tuple(S1_BLOCKS_PER_SM)
+# output tiles (rows, columns) the planner weighs, each cut to the map
+S1_TILES = ((16, 16), (10, 20), (8, 40), (8, 32), (8, 20), (10, 10), (8, 16), (8, 8), (5, 10), (4, 8), (4, 4))
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def s1_chunk_width(cmid: int) -> int:
+    """The chunk of expanded channels: the width that pads Cmid least, the
+    wider one (64) on a tie."""
+    return 64 if _round_up(cmid, 64) <= _round_up(cmid, 32) else 32
+
+
+@dataclass(frozen=True)
+class S1Layout:
+    """Byte layout of one chunk of B7's packed operands, which is also that of
+    its shared-memory buffer: we [CK][XS] | wp [Cout][DSS] | taps [3][CK] u32 |
+    vec [6][CK] f32."""
+
+    cin: int
+    cmid: int
+    cout: int
+    ck: int
+
+    @property
+    def cin_pad(self) -> int:
+        return _round_up(self.cin, 32)
+
+    @property
+    def xs(self) -> int:   # row bytes of the expand weights and of the input tile
+        return self.cin_pad + 16
+
+    @property
+    def dss(self) -> int:  # row bytes of the project weights and of d
+        return self.ck + 16
+
+    @property
+    def nchunks(self) -> int:
+        return -(-self.cmid // self.ck)
+
+    @property
+    def off_wp(self) -> int:
+        return self.ck * self.xs
+
+    @property
+    def off_taps(self) -> int:
+        return self.off_wp + self.cout * self.dss
+
+    @property
+    def off_vec(self) -> int:
+        return self.off_taps + 12 * self.ck
+
+    @property
+    def chunk_bytes(self) -> int:
+        return self.off_vec + 24 * self.ck
+
+    @property
+    def nbytes(self) -> int:
+        """All chunks, then p_scale and p_bias (float32), padded to 16."""
+        return self.nchunks * self.chunk_bytes + _round_up(8 * self.cout, 16)
+
+
+def s1_smem_bytes(tile_h: int, tile_w: int, lay: S1Layout) -> int:
+    """Dynamic shared memory of a block (csrc/int8_block_s1.cu, `derive`):
+    the halo'd input tile, the expanded chunk channel-major, d
+    position-major, two chunk buffers."""
+    ih, iw = tile_h + 2, tile_w + 2
+    rw = 4 * (-(-tile_w // 4)) + 4
+    cs = ih * rw
+    if (cs // 4) % 2 == 0:
+        cs += 4
+    mt = -(-(tile_h * tile_w) // 16)
+    return ih * iw * lay.xs + _round_up(lay.ck * cs, 16) + mt * 16 * lay.dss + 2 * lay.chunk_bytes
+
+
+@dataclass(frozen=True)
+class S1Plan:
+    """One launch of B7: the output tile (rows, columns), the chunk width,
+    the warps of a block, each warp's project rectangle (PM M tiles by PN N
+    tiles), the dynamic shared memory and the grid (one block a tile of one
+    image)."""
+
+    tile_h: int
+    tile_w: int
+    ck: int
+    warps: int
+    pm: int
+    pn: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def s1_plans(b: int, h: int, w: int, cin: int, cmid: int, cout: int):
+    """Every launch plan of B7 for x (b, h, w, cin) and (cmid, cout) that
+    fits: each tile of S1_TILES (cut to the map) with each variant of
+    S1_VARIANTS whose project rectangles cover the tile's outputs, within
+    MAX_SMEM. Raises ValueError on shapes the kernel does not take."""
+    if min(b, h, w, cmid) < 1 or cin < 8 or cin % 8 or cout < 8 or cout % 8:
+        raise ValueError(f"B7 takes Cin and Cout multiples of 8 and a non-empty map, got "
+                         f"{(b, h, w, cin, cmid, cout)}")
+    lay = S1Layout(cin, cmid, cout, s1_chunk_width(cmid))
+    for th, tw in dict.fromkeys((min(th, h), min(tw, w)) for th, tw in S1_TILES):
+        smem = s1_smem_bytes(th, tw, lay)
+        if smem > MAX_SMEM:
+            continue
+        mt, nt = -(-(th * tw) // 16), cout // 8
+        for warps, pm, pn in S1_VARIANTS:
+            if -(-mt // pm) * -(-nt // pn) <= warps:
+                yield S1Plan(th, tw, lay.ck, warps, pm, pn, smem, (b * -(-h // th) * -(-w // tw), 1, 1))
+
+
+def _s1_cost(b, h, w, lay, plan):
+    """Estimated time of a plan, in warp instructions of the busiest SM. A
+    chunk of a block costs its expand of the halo (mma and requantization),
+    its depthwise (units of four outputs by four channels), its project mma
+    and a fixed 2,000 for its barriers and the latency they expose. An SM
+    runs its share of the blocks, at full rate once 16 warps are resident.
+    Fitted to `kernels/sweep_b7.py` on the default model's blocks (PERF.md §6)."""
+    th, tw = plan.tile_h, plan.tile_w
+    npos = _round_up((th + 2) * (tw + 2), 16)
+    mpad = _round_up(th * tw, 16)
+    per_chunk = (npos // 16) * (lay.ck // 8) * (lay.cin_pad // 32) * 3 + npos * lay.ck * 14 // 32 \
+        + (lay.ck // 4) * th * -(-tw // 4) * 330 // 32 + (mpad // 16) * (lay.cout // 8) * (lay.ck // 32) * 3 + 2000
+    per_sm = -(-plan.grid[0] // NUM_SMS)
+    resident = min(per_sm, S1_BLOCKS_PER_SM[plan.warps, plan.pm, plan.pn]) * plan.warps
+    return lay.nchunks * per_chunk * per_sm * 16 / min(resident, 16)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_int8_block_s1(b: int, h: int, w: int, cin: int, cmid: int, cout: int) -> S1Plan:
+    """B7's launch plan for x (b, h, w, cin) and (cmid, cout): of `s1_plans`,
+    the one `_s1_cost` finds cheapest (few halo positions and little ragged
+    waste for the outputs, enough blocks to keep the SMs busy). Raises
+    ValueError if none fits."""
+    lay = S1Layout(cin, cmid, cout, s1_chunk_width(cmid))
+    plans = list(s1_plans(b, h, w, cin, cmid, cout))
+    if not plans:
+        raise ValueError(f"no B7 plan fits {(b, h, w, cin, cmid, cout)}")
+    return min(plans, key=lambda plan: _s1_cost(b, h, w, lay, plan))
+
+
+@dataclass(frozen=True)
+class PackedInt8BlockS1:
+    """B7's operands in the kernel's layout (`pack_int8_block_s1`): `data`
+    holds S1Layout(cin, cmid, cout, ck).nbytes bytes (uint8, one tensor)."""
+
+    data: torch.Tensor
+    cin: int
+    cmid: int
+    cout: int
+    ck: int
+
+    @property
+    def layout(self) -> S1Layout:
+        return S1Layout(self.cin, self.cmid, self.cout, self.ck)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def _f32_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def pack_int8_block_s1(we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale,
+                       p_bias) -> PackedInt8BlockS1:
+    """Lay B7's eleven JAX-layout operands out once, on their device, in the
+    kernel's layout (S1Layout): chunk by chunk of CK expanded channels,
+    each chunk the contiguous bytes of its shared-memory buffer: the expand
+    weights (CK rows of Cin, zero to XS bytes), the project weights (Cout
+    rows of CK, zero to DSS bytes), the depthwise taps of each row dy as one
+    word (w[dy, 0], w[dy, 1], w[dy, 2], 0) a channel, and the six vectors;
+    channels past Cmid are zero. Then p_scale and p_bias."""
+    we, wd, wp, v = _operands(we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale, p_bias)
+    cmid, cin = we.shape
+    cout = wp.shape[0]
+    if cin % 8 or cout % 8:
+        raise ValueError(f"B7 takes Cin and Cout multiples of 8, got {cin}, {cout}")
+    lay = S1Layout(cin, cmid, cout, s1_chunk_width(cmid))
+    n, ck, dev = lay.nchunks, lay.ck, we.device
+    cpad = n * ck
+    wer = torch.zeros((cpad, lay.xs), dtype=torch.int8, device=dev)
+    wer[:cmid, :cin] = we
+    wpr = torch.zeros((cout, cpad + 16), dtype=torch.int8, device=dev)
+    wpr[:, :cmid] = wp
+    wpr = torch.stack([wpr[:, k * ck : k * ck + lay.dss] for k in range(n)])   # (n, Cout, DSS)
+    wpr[:, :, ck:] = 0
+    taps = torch.zeros((3, cpad, 4), dtype=torch.int8, device=dev)
+    taps[:, :cmid, :3] = wd.reshape(3, 3, cmid).permute(0, 2, 1).to(torch.int8)
+    vec = torch.zeros((6, cpad), dtype=torch.float32, device=dev)
+    for r, k in enumerate(_VEC_KEYS[:6]):
+        vec[r, :cmid] = v[k]
+    chunks = torch.cat([
+        wer.view(torch.uint8).reshape(n, ck * lay.xs),
+        wpr.view(torch.uint8).reshape(n, cout * lay.dss),
+        taps.view(torch.uint8).reshape(3, n, ck * 4).permute(1, 0, 2).reshape(n, 12 * ck),
+        _f32_bytes(vec.reshape(6, n, ck).permute(1, 0, 2)).reshape(n, 24 * ck),
+    ], dim=1)
+    tail = torch.zeros(lay.nbytes - n * lay.chunk_bytes, dtype=torch.uint8, device=dev)
+    tail[: 8 * cout] = _f32_bytes(torch.cat([v["p_scale"], v["p_bias"]]))
+    data = torch.cat([chunks.reshape(-1), tail])
+    return PackedInt8BlockS1(data, cin, cmid, cout, ck)
+
+
+def unpack_int8_block_s1(packed: PackedInt8BlockS1) -> dict:
+    """The JAX-layout operands back from `pack_int8_block_s1`: we (Cmid,
+    Cin), wd (9, Cmid) float32, wp (Cout, Cmid), the vectors 1-D float32."""
+    lay, d = packed.layout, packed.data
+    n, ck, cin, cmid, cout = lay.nchunks, lay.ck, lay.cin, lay.cmid, lay.cout
+    chunks = d[: n * lay.chunk_bytes].reshape(n, lay.chunk_bytes)
+    we = chunks[:, : lay.off_wp].reshape(n * ck, lay.xs)[:cmid, :cin].view(torch.int8)
+    wp = chunks[:, lay.off_wp : lay.off_taps].reshape(n, cout, lay.dss)[:, :, :ck]
+    wp = wp.permute(1, 0, 2).reshape(cout, n * ck)[:, :cmid].view(torch.int8)
+    taps = chunks[:, lay.off_taps : lay.off_vec].reshape(n, 3, ck, 4).permute(1, 3, 0, 2).reshape(3, 4, n * ck)
+    wd = taps[:, :3, :cmid].view(torch.int8).reshape(9, cmid).float()
+    vec = chunks[:, lay.off_vec :].contiguous().view(torch.float32).reshape(n, 6, ck).permute(1, 0, 2)
+    vec = vec.reshape(6, n * ck)[:, :cmid]
+    pv = d[n * lay.chunk_bytes : n * lay.chunk_bytes + 8 * cout].view(torch.float32)
+    out = {"we": we.contiguous(), "wd": wd, "wp": wp.contiguous()}
+    out.update({k: vec[r].contiguous() for r, k in enumerate(_VEC_KEYS[:6])})
+    out.update(p_scale=pv[:cout].clone(), p_bias=pv[cout:].clone())
+    return out
+
+
+# ------------------------------------------------------------------------- #
+# the kernels
+# ------------------------------------------------------------------------- #
+
+_P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel_s2():
     """The built `tcf_int8_block` entry point of csrc/int8_block.cu, typed."""
     from tpucenterface_torch.kernels import build
 
     fn = build.load("int8_block").tcf_int8_block
-    fn.argtypes = [_P] * 12 + [_F32, _P] + [_I32] * 8 + [_P]
+    fn.argtypes = [_P] * 13 + [_I32] * 6 + [_P]
     fn.restype = _I32
     return fn
 
 
-def _launch(x, inv_se, operands, stride: int, residual: bool, out_dtype) -> torch.Tensor:
-    we, wd, wp, v = _operands(*operands)
-    dev = x.device
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("x must be contiguous NHWC, 16-byte aligned")
-    if x.numel() == 0:
-        raise ValueError(f"empty input {tuple(x.shape)}")
-    b, h, w, cin = x.shape
-    cmid, cout = we.shape[0], wp.shape[0]
-    if we.shape[1] != cin or cin % 8 or cout % 8:
-        raise ValueError(f"we must be (Cmid, {cin}); the kernel takes Cin and Cout multiples of 8, got {cin}, {cout}")
-    if residual and cout < cin:
-        raise ValueError(f"the residual needs Cout >= Cin, got {cout} < {cin}")
-    if any(t.device != dev for t in (we, wd, wp, *v.values())):
-        raise ValueError("all operands must be on x's device")
-    # held in locals until the launch has been enqueued
-    wdi, wec, wpc = wd.to(torch.int8).contiguous(), we.contiguous(), wp.contiguous()
-    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        rc = fn(
-            x.data_ptr(), wec.data_ptr(), v["e_scale"].data_ptr(), v["e_bias"].data_ptr(),
-            v["e_inv_sdw"].data_ptr(), wdi.data_ptr(), v["d_scale"].data_ptr(), v["d_bias"].data_ptr(),
-            v["d_inv_sproj"].data_ptr(), wpc.data_ptr(), v["p_scale"].data_ptr(), v["p_bias"].data_ptr(),
-            float(inv_se), out.data_ptr(), b, h, w, cin, cmid, cout, stride, int(residual),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"int8 block kernel launch failed with CUDA error {rc}")
-    return out
+@functools.lru_cache(maxsize=None)
+def _kernel_s1():
+    """The built `tcf_int8_block_s1` entry point of csrc/int8_block_s1.cu, typed."""
+    from tpucenterface_torch.kernels import build
+
+    fn = build.load("int8_block_s1").tcf_int8_block_s1
+    fn.argtypes = [_P, _P, _F32, _P] + [_I32] * 7 + [_I32] * 7 + [_I64, _P]
+    fn.restype = _I32
+    return fn
 
 
 def _device_check(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
+def _check_x(x: torch.Tensor) -> None:
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous NHWC, 16-byte aligned")
+    if x.numel() == 0:
+        raise ValueError(f"empty input {tuple(x.shape)}")
 
 
 def int8_block_s2(x, we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale, p_bias):
@@ -237,26 +469,76 @@ def int8_block_s2(x, we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_
     _device_check(x, "int8_block_s2")
     if x.dtype != torch.int8 or x.dim() != 4:
         raise TypeError(f"x must be (B, H, W, Cin) int8, got {x.dtype} {tuple(x.shape)}")
-    out = _launch(x, 0.0, ops, stride=2, residual=False, out_dtype=torch.int8)
+    we, wd, wp, v = _operands(*ops)
+    _check_x(x)
+    b, h, w, cin = x.shape
+    cmid, cout = we.shape[0], wp.shape[0]
+    if we.shape[1] != cin or cin % 8 or cout % 8:
+        raise ValueError(f"we must be (Cmid, {cin}); the kernel takes Cin and Cout multiples of 8, got {cin}, {cout}")
+    if any(t.device != x.device for t in (we, wd, wp, *v.values())):
+        raise ValueError("all operands must be on x's device")
+    # held in locals until the launch has been enqueued
+    wdi, wec, wpc = wd.to(torch.int8).contiguous(), we.contiguous(), wp.contiguous()
+    out = torch.empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, cout), dtype=torch.int8, device=x.device)
+    fn = _kernel_s2()
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), wec.data_ptr(), v["e_scale"].data_ptr(), v["e_bias"].data_ptr(),
+            v["e_inv_sdw"].data_ptr(), wdi.data_ptr(), v["d_scale"].data_ptr(), v["d_bias"].data_ptr(),
+            v["d_inv_sproj"].data_ptr(), wpc.data_ptr(), v["p_scale"].data_ptr(), v["p_bias"].data_ptr(),
+            out.data_ptr(), b, h, w, cin, cmid, cout, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"int8 block kernel launch failed with CUDA error {rc}")
     int8_block_s2.launches += 1
     return out
 
 
-def int8_block_s1(x, inv_se, we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale, p_bias,
-                  residual: bool = True):
+def int8_block_s1(x: torch.Tensor, inv_se: Union[float, torch.Tensor], packed: PackedInt8BlockS1,
+                  residual: bool = True) -> torch.Tensor:
     """B7: the stride-1 block, NHWC bf16 -> NHWC bf16 (see the module
-    docstring); `inv_se` a float or a one-element tensor. CUDA tensors launch
-    `csrc/int8_block.cu`; CPU tensors take the plain version.
-    `int8_block_s1.launches` counts kernel launches."""
-    ops = (we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale, p_bias)
-    if x.device.type == "cpu":
-        return fused_block_s1_plain(x, inv_se, *ops, residual=residual)
-    _device_check(x, "int8_block_s1")
+    docstring), on operands packed by `pack_int8_block_s1`; `inv_se` a float
+    or a one-element tensor. CUDA tensors launch `csrc/int8_block_s1.cu` with
+    `plan_int8_block_s1`'s plan; CPU tensors take the plain version on the
+    unpacked operands. Both raise on what the kernel does not take (dtype,
+    shape, a non-contiguous or misaligned x). `int8_block_s1.launches`
+    counts kernel launches."""
+    if not isinstance(packed, PackedInt8BlockS1):
+        raise TypeError(f"packed must come from pack_int8_block_s1, got {type(packed).__name__}")
+    if x.device.type != "cpu":
+        _device_check(x, "int8_block_s1")
     if x.dtype != torch.bfloat16 or x.dim() != 4:
         raise TypeError(f"x must be (B, H, W, Cin) bf16, got {x.dtype} {tuple(x.shape)}")
-    out = _launch(x, float(inv_se), ops, stride=1, residual=residual, out_dtype=torch.bfloat16)
+    _check_x(x)
+    b, h, w, cin = x.shape
+    if cin != packed.cin:
+        raise ValueError(f"x has {cin} channels, the packed operands {packed.cin}")
+    if residual and packed.cout < cin:
+        raise ValueError(f"the residual needs Cout >= Cin, got {packed.cout} < {cin}")
+    if x.device.type == "cpu":
+        return fused_block_s1_plain(x, inv_se, **unpack_int8_block_s1(packed), residual=residual)
+    if packed.device != x.device or packed.data.data_ptr() % 16:
+        raise ValueError("the packed operands must be on x's device, 16-byte aligned")
+    out = torch.empty((b, h, w, packed.cout), dtype=torch.bfloat16, device=x.device)
+    launch_int8_block_s1(x, inv_se, packed, plan_int8_block_s1(b, h, w, cin, packed.cmid, packed.cout), residual, out)
     int8_block_s1.launches += 1
     return out
+
+
+def launch_int8_block_s1(x, inv_se, packed: PackedInt8BlockS1, plan: S1Plan, residual: bool, out) -> None:
+    """Launch `csrc/int8_block_s1.cu` with `plan` into `out`, on operands that
+    `int8_block_s1` has checked (`kernels/sweep_b7.py` times every plan of
+    `s1_plans` through it); raises if the kernel refuses the plan or fails
+    to launch. Counts nothing."""
+    with torch.cuda.device(x.device):
+        rc = _kernel_s1()(
+            x.data_ptr(), packed.data.data_ptr(), float(inv_se), out.data_ptr(),
+            *x.shape, packed.cmid, packed.cout, int(residual),
+            plan.tile_h, plan.tile_w, plan.ck, plan.warps, plan.pm, plan.pn, plan.smem_bytes, plan.grid[0],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"B7 kernel launch failed with CUDA error {rc}")
 
 
 int8_block_s1.launches = 0

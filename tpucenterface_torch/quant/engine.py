@@ -45,7 +45,7 @@ bias-correction collectors.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -184,7 +184,7 @@ class QuantEngine:
         self._collector: Dict[str, torch.Tensor] = {}  # conv input statistics of a calibrate forward
         self._q: Dict[str, Dict[str, torch.Tensor]] = {}
         self._sx: Dict[str, torch.Tensor] = {}
-        self._block_args: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._block_args: Dict[int, Tuple[float, Any]] = {}  # block: (inv_se, PackedInt8BlockS1)
 
     def _conv_table(self, params) -> Dict[str, _Conv]:
         """{tag: _Conv} of every conv of the folded, head-fused `params`."""
@@ -249,7 +249,8 @@ class QuantEngine:
         """Device tensors of the installed scales: each quantized conv's int8
         weight in its op's layout, its input scale and epilogue scale; each
         scale a consumer's chained epilogue divides by; the block kernel's
-        operands under `fused_blocks`."""
+        operands under `fused_blocks`, packed once in the kernel's layout."""
+        from tpucenterface_torch.ops.int8_block import pack_int8_block_s1
         from tpucenterface_torch.weights.convert import int8_block_args
 
         dev = self.device
@@ -273,11 +274,12 @@ class QuantEngine:
                 "scale": torch.from_numpy(np.asarray(sx * sw, np.float32)).to(dev),
             }
         # inv_se stays a host float: the kernel takes it by value
-        self._block_args = {
-            i: {k: float(v) if k == "inv_se" else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in int8_block_args(self, i).items()}
-            for i in self.fused_block_indices()
-        }
+        self._block_args = {}
+        for i in self.fused_block_indices():
+            args = int8_block_args(self, i)
+            inv_se = float(args.pop("inv_se"))
+            ops = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in args.items()}
+            self._block_args[i] = (inv_se, pack_int8_block_s1(**ops))
 
     def fused_block_indices(self) -> List[int]:
         """The blocks the int8 block kernel runs under `fused_blocks`: stride
@@ -356,7 +358,8 @@ class QuantEngine:
         from tpucenterface_torch.ops.int8_block import int8_block_s1
 
         if mode == "quant" and i in self._block_args:
-            return int8_block_s1(y, **self._block_args[i])
+            inv_se, packed = self._block_args[i]
+            return int8_block_s1(y, inv_se, packed)
         t, _, s, _ = self.plan[i]
         act = "relu6" if self.cfg.relu6 else "relu"
         z = y
