@@ -6,9 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
-   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/int8_conv.cu`,
-   `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with nvcc into
-   build/kernels/, one nvcc per source, all started together;
+   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/planar_chain.cu`,
+   `csrc/int8_conv.cu`, `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with
+   nvcc into build/kernels/, one nvcc per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
    tie-heavy inputs; the one-block planar kernel, the int8 1x1 conv and the
@@ -118,6 +118,33 @@ PLANAR_SINGLE_BLOCKS = [(0, 1), (2, 1)]
 # The chains the planar engine runs at the Detector's PLANAR_CHAIN_RES, as
 # (first block, number of blocks): three at a 640 input, four at 320.
 PLANAR_CHAINS = {640: [(4, 2), (7, 6), (14, 3)], 320: [(2, 1), (4, 2), (7, 6), (14, 3)]}
+# B4b's kernel phase beyond the flagship's chains, each held to the plain chain
+# block by block and end to end (name, B, H, W, C0, [(Ce, Cout) a block], the
+# block with b1 = +3, ReLU6, the scale of w2 times Ce^-0.5): no expand, odd
+# widths, a chain of one, batch 1; Cout 320 (40 N tiles in one pass) at
+# 10x10 and 20x20 at bs1 and bs32; Cout and Ce off the multiples of 8 and of
+# the chunk; W one past a tile side; maps smaller than any tile; a 16-block
+# chain (the scratch buffers in turns eight times; w2 small beside the skip, so
+# that a flipped value is not amplified sixteen times over); a chain whose
+# widest block is not its first. tests/test_torch_planar_chain.py plans every
+# one of them on the CPU.
+B4B_KERNEL_SHAPES = (
+    ("no expand first, b1=+3, 2x23x37", 2, 23, 37, 32, [(32, 16), (96, 24), (144, 24), (144, 40)], 1, True, 2.0),
+    ("no expand with skip, 1x5x7", 1, 5, 7, 8, [(8, 8), (48, 8)], None, True, 2.0),
+    ("chain of one, batch 1, 10x10", 1, 10, 10, 160, [(960, 160)], None, True, 2.0),
+    ("odd widths, ReLU, 3x19x33", 3, 19, 33, 12, [(40, 12), (40, 20), (20, 20)], 0, False, 2.0),
+    ("six blocks, batch 1, 40x24", 1, 40, 24, 64, [(384, 64)] * 3 + [(384, 96), (576, 96), (576, 96)], 2, True, 2.0),
+    *((f"160->960->320, {b}x{hw}x{hw}", b, hw, hw, 160, [(960, 320)], None, True, 2.0) for b in (1, 32) for hw in (10, 20)),
+    ("Cout 37 and 13, 2x17x29", 2, 17, 29, 24, [(144, 37), (100, 13)], None, True, 2.0),
+    ("Ce 136 and 200, 2x20x20", 2, 20, 20, 32, [(136, 32), (200, 32)], 0, True, 2.0),
+    ("W one past 16, 2x33x17 32->192->32", 2, 33, 17, 32, [(192, 32)], None, True, 2.0),
+    ("W one past 20, 2x40x41 96->576->96", 2, 40, 41, 96, [(576, 96)], None, True, 2.0),
+    ("W one past 10, 2x20x21 160->960->160", 2, 20, 21, 160, [(960, 160)], None, True, 2.0),
+    ("1x1 map 32->192->32", 2, 1, 1, 32, [(192, 32), (192, 32)], None, True, 2.0),
+    ("2x3 map 64->384->96", 3, 2, 3, 64, [(384, 64), (384, 96)], None, True, 2.0),
+    ("sixteen blocks, 2x12x12", 2, 12, 12, 32, [(96, 32)] * 16, None, True, 0.5),
+    ("widest not first, 2x16x16", 2, 16, 16, 24, [(96, 16), (96, 64), (384, 32), (192, 32)], None, True, 2.0),
+)
 # The blocks of the default model with distinct kernel shapes at 640, and how
 # many blocks of a forward share each shape (FastEngine.kernel_blocks(640)).
 MBCONV_BLOCKS_640 = {0: 1, 2: 1, 4: 2, 7: 3, 10: 1, 11: 2}
@@ -351,7 +378,7 @@ def phase_build():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("decode", "mbconv", "nms", "planar", "int8_conv", "int8_block", "int8_block_s1")
+    names = ("decode", "mbconv", "nms", "planar", "planar_chain", "int8_conv", "int8_block", "int8_block_s1")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed, names))
@@ -558,10 +585,10 @@ def planar_chain_inputs(det, x, size, runs):
     return out
 
 
-def _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=None):
+def _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=None, w2_scale=2.0):
     """(planar bf16 input with garbage pad columns, blocks) on random weights;
     `spec` lists (Ce, Cout) per block: no expand where Ce equals the block's
-    input width, a skip where Cout does."""
+    input width, a skip where Cout does; w2 is `w2_scale` * Ce^-0.5 * randn."""
     from tpucenterface_torch.ops.planar_mbconv import padded_width
 
     def rnd(*shape, scale, shift=0.0):
@@ -577,7 +604,7 @@ def _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=None):
             "w1": rnd(c, ce, scale=0.3) if expand else None,
             "b1": rnd(ce, scale=0.1, shift=3.0 if i == b1_shift_at else 0.0) if expand else None,
             "wd": rnd(3, 3, ce, scale=0.3), "bd": rnd(ce, scale=0.1),
-            "w2": rnd(ce, cout, scale=2 * ce ** -0.5), "b2": rnd(cout, scale=0.1), "skip": c == cout,
+            "w2": rnd(ce, cout, scale=w2_scale * ce ** -0.5), "b2": rnd(cout, scale=0.1), "skip": c == cout,
         })
         c = cout
     return x.reshape(b, c0, h * wp).to(torch.bfloat16).contiguous(), blocks
@@ -658,8 +685,9 @@ def phase_kernels_planar(chains, singles):
     weights (garbage in the pad columns): B4b on every chain of the planar
     engine at 640 and 320 (`chains`), B4a, which is on no path, on blocks 0
     and 2 of a 640 input (`singles`) and on each chain's first block; and random cases: no expand,
-    b1 = +3, H != W, odd channel counts, a chain of one, batch 1, ReLU.
-    Returns ({case: max |err|} of B4a, of B4b)."""
+    b1 = +3, H != W, odd channel counts, a chain of one, batch 1, ReLU, and
+    B4b at every shape of B4B_KERNEL_SHAPES. Returns ({case: max |err|} of
+    B4a, of B4b)."""
     dev = chains[0]["x"].device
     one, many = {}, {}
     for ch in chains:
@@ -669,14 +697,8 @@ def phase_kernels_planar(chains, singles):
         what = f"block {ch['first']} bs32@{ch['size']}"
         one[what] = _check_planar_block(what, ch["x"], ch["blocks"][0], ch["H"], ch["W"])
     gen = torch.Generator().manual_seed(2468)
-    for what, b, h, w, c0, spec, shift, relu6 in (
-        ("no expand first, b1=+3, 2x23x37", 2, 23, 37, 32, [(32, 16), (96, 24), (144, 24), (144, 40)], 1, True),
-        ("no expand with skip, 1x5x7", 1, 5, 7, 8, [(8, 8), (48, 8)], None, True),
-        ("chain of one, batch 1, 10x10", 1, 10, 10, 160, [(960, 160)], None, True),
-        ("odd widths, ReLU, 3x19x33", 3, 19, 33, 12, [(40, 12), (40, 20), (20, 20)], 0, False),
-        ("six blocks, batch 1, 40x24", 1, 40, 24, 64, [(384, 64)] * 3 + [(384, 96), (576, 96), (576, 96)], 2, True),
-    ):
-        x, blocks = _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=shift)
+    for what, b, h, w, c0, spec, shift, relu6, w2_scale in B4B_KERNEL_SHAPES:
+        x, blocks = _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=shift, w2_scale=w2_scale)
         many[what] = _check_planar_chain(what, x, blocks, h, w, relu6=relu6)
     for what, b, h, w, c0, spec, shift, relu6 in (
         ("no expand 2x23x37", 2, 23, 37, 32, [(32, 16)], None, True),
@@ -1304,8 +1326,8 @@ def times_planar(chains, singles):
     bs32@640 forward (three launches), B4a's those of blocks 0 and 2.
     Bytes: x and out once (bfloat16) and every weight once."""
     from tpucenterface_torch.ops.planar_mbconv import (
-        nhwc_from_planar, pack_planar_blocks, planar_mbconv, planar_mbconv_chain, planar_mbconv_chain_plain,
-        planar_mbconv_plain,
+        nhwc_from_planar, pack_planar_blocks, pack_planar_chain, planar_mbconv, planar_mbconv_chain,
+        planar_mbconv_chain_plain, planar_mbconv_plain,
     )
 
     def run_modules(mods, y):
@@ -1319,7 +1341,7 @@ def times_planar(chains, singles):
         b, c0, _ = x.shape
         pos = b * h * w
         y = nhwc_from_planar(x, h, w).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        packed = pack_planar_blocks(blocks, c0, x.device)
+        packed = pack_planar_chain(blocks, c0, x.device)
         work, cin = [], c0
         for blk in blocks:
             work.append(_block_work(pos, cin, blk))
@@ -1620,7 +1642,7 @@ def main() -> int:
         "fused_mbconv": ("tpucenterface_torch/csrc/mbconv.cu", "tpucenterface/ops/fused_mbconv.py:150"),
         "sigmoid_pseudo_nms_fused": ("tpucenterface_torch/csrc/nms.cu", "tpucenterface/decode/pallas_nms.py:45"),
         "planar_mbconv": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:151"),
-        "planar_mbconv_chain": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:303"),
+        "planar_mbconv_chain": ("tpucenterface_torch/csrc/planar_chain.cu", "tpucenterface/ops/planar_mbconv.py:303"),
         "int8_conv1x1": ("tpucenterface_torch/csrc/int8_conv.cu", "tpucenterface/bench/probe_int8_conv.py:36"),
         "int8_block_s2": ("tpucenterface_torch/csrc/int8_block.cu", "tpucenterface/bench/probe_fused_block.py:161"),
         "int8_block_s1": ("tpucenterface_torch/csrc/int8_block_s1.cu", "tpucenterface/bench/probe_fused_block.py:318"),

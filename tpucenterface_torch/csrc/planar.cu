@@ -1,9 +1,9 @@
-// MobileNetV2 inverted-residual blocks (stride 1) on the row-padded planar
-// layout, for Hopper (sm_90a): one block, and a chain of N blocks in ONE launch.
+// One MobileNetV2 inverted-residual block (stride 1) on the row-padded planar
+// layout, for Hopper (sm_90a). The chain of N blocks in one launch is
+// csrc/planar_chain.cu.
 //
-// Replaces the TPU kernels of tpucenterface/ops/planar_mbconv.py:
+// Replaces the TPU kernel of tpucenterface/ops/planar_mbconv.py:
 //   tcf_planar_mbconv  <-  planar_mbconv        (kernel _kernel)
-//   tcf_planar_chain   <-  planar_mbconv_chain  (kernel _chain_kernel)
 //
 // Layout: activations (B, C, H*Wp) bf16, channel planes of H rows of Wp pixels;
 // columns W..Wp-1 of a row are pad columns, read as zeros whatever they hold and
@@ -15,10 +15,9 @@
 //         bd are float32 and each product is rounded before it is added (no
 //         fused multiply-add: the product of a bf16 and a float32 is not exact)
 //   p = w2 d + b2 [+ x]           bf16 operands, float32 sums
-// with b1, wd, bd, b2 in float32. tcf_planar_mbconv writes p as float32;
-// tcf_planar_chain rounds p to bf16 after every block and feeds it to the next.
+// with b1, wd, bd, b2 in float32. tcf_planar_mbconv writes p as float32.
 //
-// The TPU kernels keep a whole image and its 6x expanded tensor in on-chip
+// The TPU kernel keeps a whole image and its 6x expanded tensor in on-chip
 // memory; an SM has 227 KB, so nothing of that carries over. Here:
 // - a work item is one tile of up to 256 output positions of one image (and
 //   one group of up to 96 output channels). The tile's sides are chosen per
@@ -35,17 +34,6 @@
 //   from device memory (they stay in L2). The expanded tensor never leaves the
 //   SM. Neighbouring tiles recompute each other's halo, and output channels
 //   beyond 96 are further items that recompute stages A and B.
-// - block k+1 needs block k's neighbours, so tiles cannot run a chain on their
-//   own without a halo of N rows. The chain is one cooperative launch of
-//   persistent thread blocks: every thread block walks the items of chain
-//   block k, writes bf16 outputs to one of two scratch buffers in device
-//   memory (L2-sized at the model's shapes), and all meet in a grid-wide sync
-//   before chain block k+1 reads them. No thread leaves before the last sync.
-//   A cooperative grid was chosen over a thread-block cluster per image
-//   because it spreads one image's tiles over the whole card (a cluster is at
-//   most 8 SMs) and takes any number of tiles per image.
-// - the chain's blocks (pointers, channel counts, skip) are a table in the
-//   kernel's arguments, read at run time: one instance serves every chain.
 //
 // Bound on an H100 SXM: x, out and the weights once over 3.35 TB/s against the
 // two products over 989 TFLOP/s and the depthwise over 67 TFLOP/s; at the
@@ -60,14 +48,11 @@
 // tensor cores sum in another order, so a value next to a bf16 rounding
 // boundary can land one bf16 step away. The depthwise keeps its sum order.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,7 +63,6 @@ constexpr int kHaloPos = 324;               // most positions of a tile with its
 constexpr int CK = 32;                      // expanded channels per chunk
 constexpr int NT = 12;                      // 8-wide output-channel tiles per item
 constexpr int ES = CK + 8;                  // row stride of the expanded chunk
-constexpr int kMaxBlocks = 16;              // blocks in a chain
 constexpr int kMaxCin = 256;
 constexpr int kMaxSmem = 232448;            // bytes a block may use on sm_90
 constexpr int kMaxDevices = 64;            // device ordinals these entry points keep state for
@@ -97,15 +81,6 @@ struct Geometry {
   int B, H, W, Wp, relu6;
   int tw, th;             // a tile's width and height in output positions
   int tiles_x, tiles_y;   // tiles across and down the map
-};
-
-struct ChainParams {
-  Block blocks[kMaxBlocks];
-  Geometry g;
-  int n;
-  const __nv_bfloat16* x;
-  __nv_bfloat16* out;
-  __nv_bfloat16* scratch[2];
 };
 
 __host__ __device__ constexpr int pad16(int c) { return (c + 15) / 16 * 16; }
@@ -164,8 +139,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // One work item of one block: a tile of one image, one group of up to 96
 // output channels. Output position p of the tile is (p / tw, p % tw); M tile m
 // of the project holds positions 16m..16m+15, and warp w computes M tiles w
-// and w + 8. `in` is read with plain loads: in a chain it was written
-// by other thread blocks of this launch.
+// and w + 8.
 template <typename OutT>
 __device__ void run_item(const Block& k, const Geometry& geo, const __nv_bfloat16* in, OutT* out,
                          int item, unsigned char* smem) {
@@ -461,26 +435,6 @@ planar_block_kernel(const Block k, const Geometry g, const __nv_bfloat16* x, flo
   zero_pad_columns(out, k.cout, g);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-planar_chain_kernel(const ChainParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
-  const __nv_bfloat16* in = p.x;
-  for (int i = 0; i < p.n; ++i) {
-    const Block& k = p.blocks[i];
-    const bool last = i == p.n - 1;
-    __nv_bfloat16* out = last ? p.out : p.scratch[i & 1];
-    const int items = items_of(k, p.g);
-    for (int item = blockIdx.x; item < items; item += gridDim.x) run_item<__nv_bfloat16>(k, p.g, in, out, item, smem);
-    if (last) {
-      zero_pad_columns(out, k.cout, p.g);
-    } else {
-      grid.sync();  // every thread block has written its part of this block's output
-    }
-    in = out;
-  }
-}
-
 // Fills `k` from six pointers and (Cin, Ce, Cout, skip); false if they are not
 // a block these kernels take.
 bool read_block(Block& k, const void* const* ptr, const int* dims) {
@@ -564,57 +518,5 @@ extern "C" int tcf_planar_mbconv(
   if (e != cudaSuccess) return static_cast<int>(e);
   planar_block_kernel<<<items_of(k, g), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       k, g, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// A chain of n blocks (1..16) in one cooperative launch, output bf16
-// (B, C_last, H*Wp). `ptrs` holds six pointers and `dims` four ints per block,
-// as for tcf_planar_mbconv; block i's Cin is block i-1's Cout. scratch0 and
-// scratch1 are (B, widest intermediate C, H*Wp) bf16 buffers on the device:
-// scratch0 is needed for n > 1, scratch1 for n > 2.
-extern "C" int tcf_planar_chain(
-    const void* x, void* out, void* scratch0, void* scratch1,
-    const void* const* ptrs, const int* dims, int n,
-    int B, int H, int W, int Wp, int relu6, void* stream) {
-  ChainParams p;
-  p.g = Geometry{B, H, W, Wp, relu6, 0, 0, 0, 0};
-  if (!x || !out || !ptrs || !dims || n < 1 || n > kMaxBlocks || !good_geometry(p.g) ||
-      (n > 1 && !scratch0) || (n > 2 && !scratch1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int cin_pad = 0, most_items = 0;
-  for (int i = 0; i < n; ++i) {
-    Block& k = p.blocks[i];
-    if (!read_block(k, ptrs + 6 * i, dims + 4 * i)) return static_cast<int>(cudaErrorInvalidValue);
-    if (i > 0 && k.cin != p.blocks[i - 1].cout) return static_cast<int>(cudaErrorInvalidValue);
-    cin_pad = std::max(cin_pad, pad16(k.cin));
-    most_items = std::max(most_items, items_of(k, p.g));
-  }
-  p.n = n;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.scratch[0] = static_cast<__nv_bfloat16*>(scratch0);
-  p.scratch[1] = static_cast<__nv_bfloat16*>(scratch1);
-
-  const size_t smem = smem_bytes(cin_pad);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  static bool asked[kMaxDevices] = {};
-  cudaError_t e = allow_max_smem(reinterpret_cast<const void*>(planar_chain_kernel), asked);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // a cooperative grid must be resident all at once: no more thread blocks
-  // than the card holds, and no more than the widest block has items
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return static_cast<int>(e);
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, planar_chain_kernel, kThreads, smem)) != cudaSuccess) {
-    return static_cast<int>(e);
-  }
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int grid = std::min(most_items, sms * per_sm);
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(planar_chain_kernel), dim3(grid), dim3(kThreads), args, smem,
-      static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,7 @@ from tpucenterface_torch.model.blocks import act
 from tpucenterface_torch.model.centernet import CenterFaceNet
 from tpucenterface_torch.ops.planar_mbconv import (
     nhwc_from_planar,
-    pack_planar_blocks,
+    pack_planar_chain,
     planar_from_nhwc,
     planar_mbconv_chain,
 )
@@ -109,8 +109,9 @@ class PlanarEngine:
         net.load_state_dict(state_dict_from_variables({**folded_variables, "params": params}), strict=True)
         net.requires_grad_(False).eval().cast_convs_()
         self.net = net.to(device=self.device, memory_format=torch.channels_last)
-        # {first block: the run's blocks as the chain wrapper takes them}: packed
-        # for the kernel on a card, dicts of tensors on the CPU; built at first use
+        # {first block: the run's blocks as the chain wrapper takes them}: a
+        # PackedChain for the kernel on a card, dicts of tensors on the CPU;
+        # built at first use
         self._chains: Dict[int, Any] = {}
 
     def _apply_algebraic_fusion(self, params):
@@ -162,7 +163,7 @@ class PlanarEngine:
                 [self.params["backbone"][f"block_{i}"] for i in range(first, first + count)], cin
             )
             if self.device.type == "cuda":
-                self._chains[first] = pack_planar_blocks(run, cin, self.device)
+                self._chains[first] = pack_planar_chain(run, cin, self.device)
             else:
                 self._chains[first] = [
                     {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in blk.items()} for blk in run

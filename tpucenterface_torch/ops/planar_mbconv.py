@@ -1,5 +1,7 @@
 """Inverted-residual blocks on the row-padded planar layout: the CUDA kernels
-of `csrc/planar.cu`, their plain versions and the layout helpers.
+of `csrc/planar.cu` (one block) and `csrc/planar_chain.cu` (a chain), their
+plain versions, the chain kernel's launch plan and packed weights, and the
+layout helpers.
 
 Mirrors `tpucenterface/ops/planar_mbconv.py` (`padded_width`,
 `planar_from_nhwc`, `nhwc_from_planar`, `mbconv_reference_planar`,
@@ -30,6 +32,13 @@ them to bfloat16; this one does not). `planar_mbconv` returns p cast to
 the skip from the rounded value of the block's input, and makes ONE kernel
 launch for the whole chain.
 
+The chain kernel takes its weights packed once (`pack_planar_chain`: block
+by block, chunk by chunk of 32 expanded channels, each chunk one 16-byte
+aligned slab in the layout of its shared-memory buffer) and a launch plan that
+`plan_planar_chain` fits to the map (per block the tile, the chunk width and
+each warp's rectangle of project tiles; per launch the warps, the shared
+memory and the cooperative grid).
+
 A CUDA tensor launches the kernel (bfloat16 input only) or raises; a CPU
 tensor takes the plain version. There is no `interpret` argument as in the
 JAX functions: a CUDA kernel has no interpret mode, the plain version is what
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Any, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -48,9 +58,9 @@ import torch.nn.functional as F
 from tpucenterface_torch.ops.fused_mbconv import _act, mbconv_reference
 
 LANE = 128
-# Limits of csrc/planar.cu: an input tile with its halo (up to 324 positions)
-# sits in shared memory at the block's full input width next to one chunk of
-# weights, which 227 KB holds up to 256 channels; the chain's block table is a
+# Limits of csrc/planar.cu and csrc/planar_chain.cu: an input tile with its
+# halo sits in shared memory at the block's full input width next to the chunk
+# buffers, which 227 KB holds up to 256 channels; the chain's block table is a
 # kernel argument.
 MAX_CIN = 256
 MAX_CHAIN = 16
@@ -207,6 +217,373 @@ def planar_mbconv_chain_plain(x, blocks: Sequence[Mapping[str, Any]], *, H: int,
 
 
 # --------------------------------------------------------------------------- #
+# the chain kernel's packed weights and launch plan (csrc/planar_chain.cu)
+# --------------------------------------------------------------------------- #
+
+CHAIN_CK = 32          # expanded channels a chunk
+MAX_SMEM = 232448      # bytes of shared memory a block may use on sm_90
+NUM_SMS = 132          # H100 SXM
+# (warps, consumer warps, PMX, PNX): the kernel's instantiations
+# (csrc/planar_chain.cu, `tcf_planar_chain`), one thread block of 16 warps an
+# SM. With no consumer warps every warp takes every stage (tile load, expand,
+# depthwise, project), in turn between barriers; else the producer warps take
+# the first three and the consumer warps the project, a chunk behind, with
+# setmaxnreg giving the consumers more registers. A warp of the project owns a
+# rectangle of at most PMX M tiles (16 positions) by PNX N tiles (8 output
+# channels), whose float32 sums stay in registers over all chunks, four a tile
+# and thread: 32 of the 128 registers a thread has in the first, 80 of the 168
+# a consumer thread takes in the second, which holds Cout 320 on a 10x10 tile.
+CHAIN_VARIANTS = ((16, 0, 2, 4), (8, 8, 4, 5))
+# the registers a thread of the project's warps has in each variant (the
+# launch's 128, or the consumers' setmaxnreg)
+CHAIN_REGISTERS = {(16, 0, 2, 4): 128, (8, 8, 4, 5): 168}
+# output tiles (rows, columns) the planner weighs, each cut to the map
+CHAIN_TILES = ((16, 16), (10, 20), (8, 32), (12, 12), (8, 20), (8, 16), (10, 10), (8, 10), (8, 8), (5, 10),
+               (4, 16), (5, 5), (4, 8), (4, 4), (2, 8), (2, 2), (1, 8), (1, 1))
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class ChainShape(NamedTuple):
+    """One block of a chain: channel counts, and whether it expands (without
+    an expand Ce equals Cin and the chunks are the input's own channels)."""
+
+    cin: int
+    ce: int
+    cout: int
+    expand: bool = True
+
+
+@dataclass(frozen=True)
+class ChainLayout:
+    """Byte layout of one chain block's packed weights (`pack_planar_chain`):
+    `nchunks` chunks of CHAIN_CK expanded channels, each the contiguous bytes
+    of the kernel's shared-memory chunk buffer,
+        w1 [CK][XW] bf16 (none without an expand) | w2 [N2][W2S] bf16 |
+        taps [9][CK] f32 | b1 [CK] f32 | bd [CK] f32,
+    rows padded by 16 bytes against bank conflicts, zeros past Ce, Cin and
+    Cout; then b2 [Cout] f32, padded to 16 bytes."""
+
+    shape: ChainShape
+
+    @property
+    def cin_pad(self) -> int:   # K of the expand
+        return _round_up(self.shape.cin, 16)
+
+    @property
+    def xw(self) -> int:        # row of the w1 chunk, bf16
+        return self.cin_pad + 8
+
+    @property
+    def w2s(self) -> int:       # row of the w2 chunk, bf16
+        return CHAIN_CK + 8
+
+    @property
+    def n2(self) -> int:        # rows of the w2 chunk: output channels
+        return _round_up(self.shape.cout, 16)
+
+    @property
+    def nchunks(self) -> int:
+        return -(-self.shape.ce // CHAIN_CK)
+
+    @property
+    def off_w2(self) -> int:
+        return CHAIN_CK * self.xw * 2 if self.shape.expand else 0
+
+    @property
+    def off_taps(self) -> int:
+        return self.off_w2 + self.n2 * self.w2s * 2
+
+    @property
+    def off_b1(self) -> int:
+        return self.off_taps + 9 * CHAIN_CK * 4
+
+    @property
+    def off_bd(self) -> int:
+        return self.off_b1 + CHAIN_CK * 4
+
+    @property
+    def chunk_bytes(self) -> int:
+        return self.off_bd + CHAIN_CK * 4
+
+    @property
+    def nbytes(self) -> int:
+        return self.nchunks * self.chunk_bytes + _round_up(4 * self.shape.cout, 16)
+
+
+def chain_tile_smem(tile_h: int, tile_w: int, cin: int, nds: int = 2) -> int:
+    """Shared memory of one tile of a block (csrc/planar_chain.cu, `derive`):
+    the halo positions' offsets (int32), the input tile with its halo,
+    channel-major (bf16, rows of XP positions), the expanded chunk
+    position-major (float32, four positions more for the depthwise's reads
+    past a row), the depthwise output of `nds` chunks position-major
+    (bf16)."""
+    npos = (tile_h + 2) * (tile_w + 2)
+    mt = -(-(tile_h * tile_w) // 16)
+    xp = _round_up(npos, 16) + 8
+    return (_round_up(4 * npos, 16) + _round_up(cin, 16) * xp * 2 + (npos + 4) * (CHAIN_CK + 8) * 4
+            + nds * mt * 16 * (CHAIN_CK + 8) * 2)
+
+
+@dataclass(frozen=True)
+class ChainBlockPlan:
+    """One chain block of a launch: the output tile (rows, columns), the
+    chunk width, each warp's project rectangle (PM M tiles by PN N tiles)."""
+
+    tile_h: int
+    tile_w: int
+    ck: int
+    pm: int
+    pn: int
+
+
+@dataclass(frozen=True)
+class ChainPlan:
+    """One launch of the chain kernel: a plan a block, the variant (warps,
+    consumer warps, the largest rectangle PMX x PNX), the dynamic shared
+    memory (the chunk buffers of the widest chunk, three with consumer warps
+    and two without, then the largest tile) and the cooperative grid (one
+    thread block an SM)."""
+
+    blocks: Tuple[ChainBlockPlan, ...]
+    producers: int
+    consumers: int
+    pmx: int
+    pnx: int
+    smem_bytes: int
+    grid: int
+
+
+def _chain_shapes(shapes) -> Tuple[ChainShape, ...]:
+    shapes = tuple(ChainShape(*s) for s in shapes)
+    if not 1 <= len(shapes) <= MAX_CHAIN:
+        raise ValueError(f"a chain has 1 to {MAX_CHAIN} blocks, got {len(shapes)}")
+    for i, s in enumerate(shapes):
+        if min(s.cin, s.ce, s.cout) < 1 or s.cin > MAX_CIN or (not s.expand and s.ce != s.cin):
+            raise ValueError(f"block {i}: the chain kernel takes 1 <= Cin <= {MAX_CIN} and Ce == Cin without an "
+                             f"expand, got {s}")
+        if i and s.cin != shapes[i - 1].cout:
+            raise ValueError(f"block {i} takes {s.cin} channels, block {i - 1} gives {shapes[i - 1].cout}")
+    return shapes
+
+
+def _rect(mt: int, nt: int, warps: int, pmx: int, pnx: int):
+    """The smallest rectangle (PM, PN) within (PMX, PNX) whose copies cover
+    the mt x nt project tiles with at most `warps` warps (the busiest warp's
+    share), the squarer one on a tie (fewer fragment loads); None if none."""
+    best = None
+    for pm in range(1, min(pmx, mt) + 1):
+        for pn in range(1, min(pnx, nt) + 1):
+            if -(-mt // pm) * -(-nt // pn) <= warps:
+                key = (pm * pn, pm + pn, -pm)
+                if best is None or key < best[0]:
+                    best = (key, (pm, pn))
+    return None if best is None else best[1]
+
+
+def _tiles(h: int, w: int):
+    return dict.fromkeys((min(th, h), min(tw, w)) for th, tw in CHAIN_TILES)
+
+
+def _chain_block_cost(b, h, w, s: ChainShape, bp: ChainBlockPlan, variant, grid: int) -> float:
+    """Estimated time of one chain block, in cycles of the busiest SM. A
+    chunk of a tile costs its expand of the halo (the K steps of an item's
+    mma and its epilogue), its depthwise (units of four outputs by two
+    channels) and its project (a warp's mma), each spread over the warps that
+    take it; with consumer warps the project overlaps the other two. Fitted
+    to `kernels/sweep_b4b.py`."""
+    producers, consumers = variant[0], variant[1]
+    th, tw = bp.tile_h, bp.tile_w
+    npos = (th + 2) * (tw + 2)
+    mt, nt = -(-(th * tw) // 16), -(-s.cout // 8)
+    items = 2 * -(-npos // 16)
+    if s.expand:
+        stage_a = -(-items // producers) * ((_round_up(s.cin, 16) // 16) * 60 + 500)
+    else:
+        stage_a = -(-npos * 16 // (producers * 32)) * 40
+    units = 16 * th * -(-tw // 4)
+    stage_b = -(-units // (producers * 32)) * 900
+    stage_c = bp.pm * bp.pn * 2 * 60 + 300
+    chunk = max(stage_a + stage_b + 600, stage_c) if consumers else stage_a + stage_b + stage_c + 900
+    nchunks = -(-s.ce // CHAIN_CK)
+    tile = nchunks * chunk + s.cin * npos / (producers * 4) + 2000
+    rounds = -(-(b * -(-h // th) * -(-w // tw)) // grid)
+    return rounds * tile
+
+
+def _plan_variant(shapes, b, h, w, variant, sms, tiles=None):
+    """(cost, ChainPlan) of the variant (warps, consumer warps, PMX, PNX),
+    each block on its cheapest tile of `tiles` (default: the planner's, cut to
+    the map) that fits; None if some block has none."""
+    producers, consumers, pmx, pnx = variant
+    nbuf, nds = (3, 2) if consumers else (2, 1)
+    chunk = max(ChainLayout(s).chunk_bytes for s in shapes)
+    budget = MAX_SMEM - nbuf * chunk
+    plans, cost = [], 0.0
+    for s in shapes:
+        best = None
+        for th, tw in tiles or _tiles(h, w):
+            if chain_tile_smem(th, tw, s.cin, nds) > budget:
+                continue
+            rect = _rect(-(-(th * tw) // 16), -(-s.cout // 8), consumers or producers, pmx, pnx)
+            if rect is None:
+                continue
+            bp = ChainBlockPlan(th, tw, CHAIN_CK, *rect)
+            c = _chain_block_cost(b, h, w, s, bp, variant, sms)
+            if best is None or c < best[0]:
+                best = (c, bp)
+        if best is None:
+            return None
+        cost += best[0] + 4000   # the grid-wide sync after each block
+        plans.append(best[1])
+    items = max(b * -(-h // p.tile_h) * -(-w // p.tile_w) for p in plans)
+    smem = nbuf * chunk + max(chain_tile_smem(p.tile_h, p.tile_w, s.cin, nds) for p, s in zip(plans, shapes))
+    return cost, ChainPlan(tuple(plans), producers, consumers, pmx, pnx, smem, min(items, sms))
+
+
+def chain_plans(shapes, b: int, h: int, w: int, sms: int = NUM_SMS):
+    """The launch plans `kernels/sweep_b4b.py` times: for each variant of
+    CHAIN_VARIANTS, every tile of CHAIN_TILES (cut to the map) of at least 64
+    positions (or the whole map) that fits every block, the same for all."""
+    shapes = _chain_shapes(shapes)
+    for variant in CHAIN_VARIANTS:
+        for tile in _tiles(h, w):
+            if tile[0] * tile[1] < min(64, h * w):
+                continue
+            got = _plan_variant(shapes, b, h, w, variant, sms, tiles=[tile])
+            if got is not None:
+                yield got[1]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_planar_chain(shapes, b: int, h: int, w: int, sms: int = NUM_SMS) -> ChainPlan:
+    """The chain kernel's launch plan for a chain of `shapes` (ChainShape, or
+    (Cin, Ce, Cout[, expand]) tuples) on a (b, h, w) map on `sms` SMs: of
+    the variants of CHAIN_VARIANTS, the one whose blocks, each on the tile
+    that `_chain_block_cost` finds cheapest within the shared memory, cost
+    least in all. Raises ValueError
+    on shapes the kernel does not take or if no plan fits."""
+    shapes = _chain_shapes(shapes)
+    if min(b, h, w, sms) < 1:
+        raise ValueError(f"a non-empty map and at least one SM, got {(b, h, w, sms)}")
+    best = None
+    for variant in CHAIN_VARIANTS:
+        got = _plan_variant(shapes, b, h, w, variant, sms)
+        if got is not None and (best is None or got[0] < best[0]):
+            best = got
+    if best is None:
+        raise ValueError(f"no plan of the chain kernel fits {shapes} at {(b, h, w)}")
+    return best[1]
+
+
+@dataclass(frozen=True)
+class PackedChain:
+    """A chain's weights in the chain kernel's layout (`pack_planar_chain`):
+    `data` holds the blocks' ChainLayout bytes one after the other (uint8,
+    one tensor, on one device); `shapes` and `skips` a block."""
+
+    data: torch.Tensor
+    shapes: Tuple[ChainShape, ...]
+    skips: Tuple[bool, ...]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        """Byte offset of each block's chunks in `data`."""
+        offs, at = [], 0
+        for s in self.shapes:
+            offs.append(at)
+            at += ChainLayout(s).nbytes
+        return tuple(offs)
+
+
+def _bytes(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) -> (n, bytes of a row) uint8."""
+    return t.contiguous().view(torch.uint8).reshape(n, -1)
+
+
+def pack_planar_chain(blocks: Sequence[Mapping[str, Any]], cin: int, device) -> PackedChain:
+    """Check a chain of blocks ({w1, b1, wd, bd, w2, b2, skip}, tensors or
+    numpy arrays; w1 and b1 None without an expand) that starts at `cin`
+    channels and lay its weights out once, in the chain kernel's layout
+    (ChainLayout), on `device`. `unpack_planar_chain` gives them back."""
+    parts, shapes, skips = [], [], []
+    c = cin
+    for blk in blocks:
+        w1, b1, wd, bd, w2, b2, skip = (
+            torch.as_tensor(a) if a is not None and not isinstance(a, bool) else a for a in _block_tuple(blk)
+        )
+        sh = _block_shapes(c, w1, b1, wd, bd, w2, b2, skip)
+        s = ChainShape(sh.cin, sh.ce, sh.cout, w1 is not None)
+        if s.cin > MAX_CIN:
+            raise ValueError(f"the planar kernels take at most {MAX_CIN} input channels a block, got {s.cin}")
+        lay = ChainLayout(s)
+        n, ck = lay.nchunks, CHAIN_CK
+        cpad = n * ck
+
+        def padded(t, shape, dtype):
+            out = torch.zeros(shape, dtype=dtype)
+            out[tuple(slice(0, d) for d in t.shape)] = t.to(dtype)
+            return out
+
+        chunk = []
+        if s.expand:
+            w1c = padded(w1.reshape(s.cin, s.ce).t().float(), (cpad, lay.xw), torch.bfloat16)
+            chunk.append(_bytes(w1c.reshape(n, ck, lay.xw), n))
+        w2c = padded(w2.reshape(s.ce, s.cout).t().float(), (lay.n2, cpad), torch.bfloat16)
+        w2c = torch.cat([w2c.reshape(lay.n2, n, ck).permute(1, 0, 2),
+                         torch.zeros((n, lay.n2, lay.w2s - ck), dtype=torch.bfloat16)], dim=2)
+        chunk.append(_bytes(w2c, n))
+        taps = padded(wd.reshape(9, s.ce).float(), (9, cpad), torch.float32)
+        chunk.append(_bytes(taps.reshape(9, n, ck).permute(1, 0, 2), n))
+        for v in (b1 if s.expand else torch.zeros(s.ce), bd):
+            chunk.append(_bytes(padded(v.reshape(s.ce).float(), (cpad,), torch.float32).reshape(n, ck), n))
+        parts += [torch.cat(chunk, dim=1).reshape(-1),
+                  padded(b2.reshape(s.cout).float(), (_round_up(s.cout, 4),), torch.float32).view(torch.uint8)]
+        shapes.append(s)
+        skips.append(bool(skip))
+        c = s.cout
+    shapes = _chain_shapes(shapes)
+    return PackedChain(torch.cat(parts).to(device), shapes, tuple(skips))
+
+
+def unpack_planar_chain(packed: PackedChain) -> List[dict]:
+    """The blocks back from `pack_planar_chain`, in the port's layout: w1
+    (Cin, Ce) and w2 (Ce, Cout) bfloat16 (None without an expand), wd
+    (3, 3, Ce), b1, bd, b2 float32, and skip."""
+    d = packed.data.cpu()
+    out = []
+    for s, skip, at in zip(packed.shapes, packed.skips, packed.offsets):
+        lay = ChainLayout(s)
+        n, ck = lay.nchunks, CHAIN_CK
+        chunks = d[at : at + n * lay.chunk_bytes].reshape(n, lay.chunk_bytes)
+
+        def part(lo, hi, dtype, *shape):
+            return chunks[:, lo:hi].contiguous().view(dtype).reshape(n, *shape)
+
+        w1 = None
+        if s.expand:
+            w1 = part(0, lay.off_w2, torch.bfloat16, ck, lay.xw).reshape(n * ck, lay.xw)[: s.ce, : s.cin]
+        w2 = part(lay.off_w2, lay.off_taps, torch.bfloat16, lay.n2, lay.w2s)[:, : s.cout, :ck]
+        taps = part(lay.off_taps, lay.off_b1, torch.float32, 9, ck).permute(1, 0, 2).reshape(9, n * ck)
+        b1 = part(lay.off_b1, lay.off_bd, torch.float32, ck).reshape(-1)[: s.ce]
+        bd = part(lay.off_bd, lay.chunk_bytes, torch.float32, ck).reshape(-1)[: s.ce]
+        b2 = d[at + n * lay.chunk_bytes : at + n * lay.chunk_bytes + 4 * s.cout].view(torch.float32)
+        out.append({
+            "w1": None if w1 is None else w1.t().contiguous(), "b1": b1.clone() if s.expand else None,
+            "wd": taps[:, : s.ce].reshape(3, 3, s.ce).clone(), "bd": bd.clone(),
+            "w2": w2.permute(0, 2, 1).reshape(n * ck, s.cout)[: s.ce].contiguous(), "b2": b2.clone(),
+            "skip": skip,
+        })
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # the kernels
 # --------------------------------------------------------------------------- #
 
@@ -215,23 +592,28 @@ _P, _I32 = ctypes.c_void_p, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The built entry points of csrc/planar.cu, typed:
-    (tcf_planar_mbconv, tcf_planar_chain)."""
+    """The built entry points, typed: (tcf_planar_mbconv of csrc/planar.cu,
+    tcf_planar_chain of csrc/planar_chain.cu)."""
     from tpucenterface_torch.kernels import build
 
-    lib = build.load("planar")
-    one, chain = lib.tcf_planar_mbconv, lib.tcf_planar_chain
+    one, chain = build.load("planar").tcf_planar_mbconv, build.load("planar_chain").tcf_planar_chain
     # x, out, pointers[6], dims[4], B, H, W, Wp, relu6, stream
     one.argtypes = [_P] * 4 + [_I32] * 5 + [_P]
-    # x, out, scratch0, scratch1, pointers[6n], dims[4n], n, B, H, W, Wp, relu6, stream
-    chain.argtypes = [_P] * 6 + [_I32] * 6 + [_P]
+    # x, out, scratch0, scratch1, packed, packed bytes, table[10 n], n, B, H, W, Wp, relu6,
+    # producers, consumers, pmx, pnx, smem, grid, stream
+    chain.argtypes = [_P] * 5 + [ctypes.c_longlong, _P] + [_I32] * 12 + [_P]
     one.restype = chain.restype = _I32
     return one, chain
 
 
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 class PackedBlocks(NamedTuple):
-    """A chain's weights as the kernels read them, on one device: w1 (Ce, Cin)
-    and w2 (Cout, Ce) in bfloat16, wd (Ce, 9) with tap dy*3+dx, b1, bd, b2 in
+    """Blocks' weights as the one-block kernel (B4a) reads them, on one
+    device: w1 (Ce, Cin) and w2 (Cout, Ce) in bfloat16, wd (Ce, 9) with tap dy*3+dx, b1, bd, b2 in
     float32; six pointers and (Cin, Ce, Cout, skip) per block in host arrays."""
 
     tensors: Tuple[Optional[torch.Tensor], ...]   # keeps the device memory alive
@@ -358,7 +740,7 @@ planar_mbconv.launches = 0
 
 def planar_mbconv_chain(
     x: torch.Tensor,
-    blocks: Union[Sequence[Mapping[str, Any]], PackedBlocks],
+    blocks: Union[Sequence[Mapping[str, Any]], PackedChain],
     *,
     H: int,
     W: int,
@@ -368,44 +750,61 @@ def planar_mbconv_chain(
     x (B, C0, H*Wp) -> (B, C_last, H*Wp) bfloat16.
 
     `blocks` is a sequence of dicts {w1, b1, wd, bd, w2, b2, skip} (w1 and b1
-    None without an expand) or the `PackedBlocks` of one. CUDA tensors launch
-    `tcf_planar_chain` of csrc/planar.cu once, whatever N is (bfloat16 input,
-    N <= MAX_CHAIN, Cin <= MAX_CIN in every block); CPU tensors take
+    None without an expand) or their `PackedChain` (`pack_planar_chain`).
+    CUDA tensors launch `tcf_planar_chain` of csrc/planar_chain.cu once,
+    whatever N is (bfloat16 input, N <= MAX_CHAIN, Cin <= MAX_CIN in every
+    block), with `plan_planar_chain`'s plan; CPU tensors take
     `planar_mbconv_chain_plain`. `planar_mbconv_chain.launches` counts kernel
     launches. No `interpret` argument: see the module docstring.
     """
     wp = _check_planar(x, H, W)
     if x.device.type == "cpu":
-        if isinstance(blocks, PackedBlocks):
+        if isinstance(blocks, (PackedBlocks, PackedChain)):
             raise ValueError("packed blocks are for the kernel; pass the blocks' dicts on the CPU")
         return planar_mbconv_chain_plain(x, blocks, H=H, W=W, relu6=relu6)
     if x.device.type != "cuda":
         raise ValueError(f"planar_mbconv_chain runs on cuda or cpu, not {x.device}")
+    if isinstance(blocks, PackedBlocks):
+        raise TypeError("the chain kernel takes the blocks' dicts or a PackedChain (pack_planar_chain)")
     _check_cuda_input(x, "planar chain")
-    packed = blocks if isinstance(blocks, PackedBlocks) else pack_planar_blocks(blocks, x.shape[1], x.device)
-    _check_packed_for(packed, x)
-    b, n = x.shape[0], len(packed.shapes)
+    packed = blocks if isinstance(blocks, PackedChain) else pack_planar_chain(blocks, x.shape[1], x.device)
+    if packed.device != x.device or packed.shapes[0].cin != x.shape[1]:
+        raise ValueError(f"the chain was packed for {packed.shapes[0].cin} channels on {packed.device}, "
+                         f"x has {x.shape[1]} on {x.device}")
+    b = x.shape[0]
+    plan = plan_planar_chain(packed.shapes, b, H, W, _num_sms(torch.cuda.current_device() if x.device.index is None else x.device.index))
     out = torch.empty((b, packed.shapes[-1].cout, H * wp), dtype=torch.bfloat16, device=x.device)
+    launch_planar_chain(x, packed, plan, out, H=H, W=W, relu6=relu6)
+    planar_mbconv_chain.launches += 1
+    return out
+
+
+def launch_planar_chain(x, packed: PackedChain, plan: ChainPlan, out, *, H: int, W: int, relu6: bool = True) -> None:
+    """Launch csrc/planar_chain.cu with `plan` into `out`, on a chain and an
+    input that `planar_mbconv_chain` has checked (`kernels/sweep_b4b.py`
+    times every plan of `chain_plans` through it); raises if the kernel
+    refuses the plan or fails to launch. Counts nothing."""
+    b, n, wp = x.shape[0], len(packed.shapes), padded_width(H, W)
     # the blocks' outputs between the first and the last go through two
     # buffers in turn, wide enough for the widest of them
     scratch = [None, None]
     if n > 1:
-        widest = max(sh.cout for sh in packed.shapes[:-1])
-        scratch = [torch.empty((b, widest, H * wp), dtype=torch.bfloat16, device=x.device) for _ in range(min(n - 1, 2))]
-        scratch += [None] * (2 - len(scratch))
+        widest = max(s.cout for s in packed.shapes[:-1])
+        for i in range(min(n - 1, 2)):
+            scratch[i] = torch.empty((b, widest, H * wp), dtype=torch.bfloat16, device=x.device)
+    table = []
+    for s, skip, bp in zip(packed.shapes, packed.skips, plan.blocks):
+        table += [s.cin, s.ce, s.cout, int(skip), int(s.expand), bp.ck, bp.tile_h, bp.tile_w, bp.pm, bp.pn]
     _, fn = _kernels()
     with torch.cuda.device(x.device):
         rc = fn(
-            x.data_ptr(), out.data_ptr(),
-            *(None if s is None else s.data_ptr() for s in scratch),
-            packed.pointers, packed.dims, n,
-            b, H, W, wp, int(relu6),
+            x.data_ptr(), out.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
+            packed.data.data_ptr(), packed.data.numel(), (_I32 * len(table))(*table), n,
+            b, H, W, wp, int(relu6), plan.producers, plan.consumers, plan.pmx, plan.pnx, plan.smem_bytes, plan.grid,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"planar chain kernel launch failed with CUDA error {rc}")
-    planar_mbconv_chain.launches += 1
-    return out
 
 
 planar_mbconv_chain.launches = 0
