@@ -34,10 +34,9 @@ def _check_plan(shapes, b, h, w, plan=None):
     plan = plan or T.plan_planar_chain(shapes, b, h, w)
     variant = (plan.producers, plan.consumers, plan.pmx, plan.pnx)
     assert variant in T.CHAIN_VARIANTS and len(plan.blocks) == len(shapes)
-    nbuf, nds = (3, 2) if plan.consumers else (2, 1)
     chunk = max(T.ChainLayout(s).chunk_bytes for s in shapes)
-    tiles = [T.chain_tile_smem(bp.tile_h, bp.tile_w, s.cin, nds) for bp, s in zip(plan.blocks, shapes)]
-    assert plan.smem_bytes == nbuf * chunk + max(tiles) <= T.MAX_SMEM
+    tiles = [T.chain_tile_smem(bp.tile_h, bp.tile_w, s.cin, plan.consumers > 0) for bp, s in zip(plan.blocks, shapes)]
+    assert plan.smem_bytes == 3 * chunk + max(tiles) <= T.MAX_SMEM
     most = 0
     for bp, s in zip(plan.blocks, shapes):
         th, tw = bp.tile_h, bp.tile_w

@@ -18,11 +18,13 @@
 // feeds the next.
 //
 // Bound on an H100 SXM: x, out and the weights once over 3.35 TB/s against the
-// two products over 989 TFLOP/s and the depthwise over 67 TFLOP/s. The
+// two products over 989 TFLOP/s and the depthwise over 67 TFLOP/s; the
 // depthwise is the largest term at the model's shapes, and without a fused
-// multiply-add it takes two float32 instructions a tap: the issue slots of
-// the depthwise, the latency of three barriers a chunk and the weights that
-// every tile reads once are what hold a block back on this card.
+// multiply-add it takes two float32 instructions a tap. What holds a block
+// back on this card is latency inside a thread block, not the tensor cores
+// or the memory: a chunk's expand, depthwise and project are short chains of
+// dependent shared-memory loads and arithmetic split over 16 warps, between
+// barriers (a clock64 profile put the producers' issue rate near 40%).
 //
 // Design, and what each part does about that:
 // - Block k+1 reads block k's neighbouring tiles, so the chain is one
@@ -33,10 +35,9 @@
 // - The launch plan comes from the caller (ops/planar_mbconv.py,
 //   plan_planar_chain): per block a tile of TH x TW output positions of one
 //   image, fitted to the map, and each warp's PM x PN rectangle of the
-//   project's mma tiles; per launch the warps, the largest rectangle (a
-//   template variant), the shared memory and the grid. Shared memory is sized
-//   by the plan's tiles, so small tiles let two thread blocks share an SM.
-//   The kernel derives every size again and refuses a plan that does not fit.
+//   project's mma tiles; per launch the variant, the shared memory (sized by
+//   the plan's tiles) and the grid. The kernel derives every size again and
+//   refuses a plan that does not fit.
 // - Every output channel in one pass: the float32 project sums of the whole
 //   tile (TH*TW positions x Cout) stay in registers over all chunks of the
 //   expanded channels, spread over the warps. The expand and the depthwise of
@@ -45,9 +46,19 @@
 //   chunk of 32 expanded channels, each chunk one contiguous, 16-byte aligned
 //   slab in the layout of its shared-memory buffer (w1, w2 for every output
 //   channel, the nine taps, b1, bd; rows padded by 16 bytes against bank
-//   conflicts, zeros past Ce, Cin and Cout). The next chunk is copied with
-//   cp.async.cg into the second buffer while this one computes; the next chain
-//   block's first chunk is fetched before the grid-wide sync.
+//   conflicts, zeros past Ce, Cin and Cout). Chunks are copied with
+//   cp.async.cg into three buffers, one or two chunks ahead of their use,
+//   across tiles and across the grid-wide sync.
+// - Two structures, one thread block of 16 warps an SM, chosen by the plan:
+//   every warp takes every stage, software-pipelined by one chunk (the expand
+//   of chunk k+1 and the depthwise of chunk k share a phase: two barriers a
+//   chunk), for the narrow chains; or 8 producer warps (tile load, expand,
+//   depthwise) and 8 consumer warps (project, epilogue) a chunk behind,
+//   handing chunks over through named barriers, with setmaxnreg moving
+//   registers to the consumers, whose 80 float32 sums a thread hold Cout 320
+//   on a 10x10 tile. The warp index is broadcast from lane 0, so that the
+//   compiler knows the branches around ldmatrix and mma to be warp-uniform
+//   (else it puts a WARPSYNC before each, which costs the project 4x).
 // - The input tile with its halo is loaded channel-major (a channel's tile row
 //   is contiguous in the planar input), zeros outside the image and past Cin.
 // - Stage A, the expand: mma.sync.m16n8k16 over the halo, A fragments by
@@ -55,11 +66,12 @@
 //   rounding and the image mask, stored position-major in float32.
 // - Stage B, the depthwise: a thread takes four outputs of a row for two
 //   channels, a sliding window of six columns a row, each loaded value used
-//   for up to three taps; d goes position-major to shared memory in bf16.
+//   for up to three taps, the channels' taps in registers; d goes
+//   position-major to shared memory in bf16.
 // - Stage C, the project: ldmatrix reads d into A fragments and the chunk's
 //   w2 rows into B fragments; each warp adds its PM x PN tiles.
-// - The epilogue adds b2 and the skip (from the input tile) and stores bf16 into
-//   the channel planes.
+// - The epilogue adds b2 and the skip (from the input tile in shared memory)
+//   and stores bf16 into the channel planes.
 //
 // Not bit-equal to a float32 matrix product of the same bf16 operands: the
 // tensor cores sum in another order, so a value next to a bf16 rounding
@@ -197,13 +209,14 @@ template <int R>
 __device__ __forceinline__ void regs_up() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R)); }
 
 
-// Shared memory: the chunk buffers (three for the split roles, two when every
-// warp takes every stage) of p.chunk_max bytes, then one tile:
+// Shared memory: three chunk buffers of p.chunk_max bytes, then one tile:
 //   where [NPOS] i32          row * Wp + column of each halo position, -1 outside the image
 //   xs    [cin_pad][XP] bf16   the input tile with its halo, channel-major, zeros
 //                              outside the image and past Cin
-//   es    [NPOS + 4][ESW] f32  the expanded chunk, position-major (bf16 values)
-//   ds    [2 or 1][MT * 16][DSW] bf16  the depthwise output of a chunk, position-major
+//   es    [1 or 2][NPOS + 4][ESW] f32  the expanded chunk, position-major (bf16 values):
+//                              two when every warp takes every stage
+//   ds    [2 or 1][MT * 16][DSW] bf16  the depthwise output of a chunk, position-major:
+//                              two with producer and consumer warps
 // A chunk buffer: w1 [CK][XW] bf16 (with an expand) | w2 [round16(Cout)][DSW] bf16 |
 //   taps [9][CK] f32 | b1 [CK] f32 | bd [CK] f32.
 
@@ -234,20 +247,44 @@ __device__ __forceinline__ Tile tile_of(const Chain& p, const Block& k, int item
   return t;
 }
 
-// The next chunk this thread block takes after chunk `ch` of tile `item` of
-// block i: of this tile, of its next tile, or the first of the next chain block
-// (weights are read-only, so its copy may cross the grid-wide sync). Returns the
-// block, or nullptr if there is none; `*c` is the chunk.
-__device__ __forceinline__ const Block* next_chunk(const Chain& p, int i, int item, int ch, int* c) {
-  const Block& k = p.blk[i];
-  *c = 0;
-  if (ch + 1 < k.nchunks) {
-    *c = ch + 1;
-    return &k;
+// This thread block's walk of the chain's chunks (blocks, its tiles of each,
+// their chunks), for the copies that run ahead of the computation. Weights are
+// read-only, so a copy may cross the grid-wide sync into the next block.
+struct Cursor {   // the next chunk whose copy is to be started: block, tile, chunk
+  int i, item, ch;
+};
+
+// The chunk after (i, item, ch) in this thread block's walk of the chain;
+// i == p.n when there is none.
+__device__ __forceinline__ Cursor advance(const Chain& p, Cursor c) {
+  if (++c.ch < p.blk[c.i].nchunks) return c;
+  c.ch = 0;
+  c.item += gridDim.x;
+  while (c.i < p.n && c.item >= p.blk[c.i].items) {
+    ++c.i;
+    c.item = blockIdx.x;
   }
-  if (item + static_cast<int>(gridDim.x) < k.items) return &k;
-  if (i + 1 < p.n && static_cast<int>(blockIdx.x) < p.blk[i + 1].items) return &p.blk[i + 1];
-  return nullptr;
+  return c;
+}
+
+// The first chunk of the walk.
+__device__ __forceinline__ Cursor first_chunk(const Chain& p) {
+  Cursor c{0, static_cast<int>(blockIdx.x), 0};
+  while (c.i < p.n && c.item >= p.blk[c.i].items) ++c.i;
+  return c;
+}
+
+// Starts the copy of the cursor's chunk into buffer `issued` % 3 and moves the
+// cursor on; past the end it commits an empty group, so that every call adds
+// one group. `t` is this thread among the `nth` that copy.
+__device__ __forceinline__ void issue(const Chain& p, unsigned char* smem, Cursor& c, int& issued, int t, int nth) {
+  if (c.i < p.n) {
+    copy_chunk(p, p.blk[c.i], c.ch, smem + (issued % 3) * p.chunk_max, t, nth);
+    c = advance(p, c);
+  } else {
+    cp_async_commit();
+  }
+  ++issued;
 }
 
 // The halo positions' offsets of a tile (t: this thread among nth).
@@ -538,8 +575,11 @@ __device__ __forceinline__ void zero_pad_columns(const Chain& p, int cout) {
 __device__ __forceinline__ float act_cap(const Chain& p) { return p.relu6 ? 6.f : __int_as_float(0x7f800000); }
 
 // ---- every warp takes every stage: NW warps, one thread block an SM --------
-// Per chunk: its copy has landed; stage A; barrier; stage B; barrier; stage C.
-// Two chunk buffers: the next chunk is copied while this one computes.
+// Software-pipelined by one chunk: the expand of chunk k+1 (into es[(k+1) % 2])
+// and the depthwise of chunk k (from es[k % 2]) share a phase, then the project
+// of chunk k; two barriers a chunk. Chunk q of the thread block's running count
+// goes to buffer q % 3; the copy of chunk q+2 is started when the expand of
+// q+1 begins.
 template <int NW, int PMX, int PNX>
 __global__ void __launch_bounds__(NW * 32, 1) planar_chain_all(const __grid_constant__ Chain p) {
   constexpr int NTH = NW * 32;
@@ -548,8 +588,10 @@ __global__ void __launch_bounds__(NW * 32, 1) planar_chain_all(const __grid_cons
   const int tid = threadIdx.x;
   const int warp = warp_index();
   const float cap = act_cap(p);
-  int slot = 0;
-  bool ready = false;
+  // the copy cursor and the count of copies started; chunk q of the walk is
+  // the q-th copy
+  Cursor cur = first_chunk(p);
+  int issued = 0, q = 0;
   for (int i = 0; i < p.n; ++i) {
     const Block& k = p.blk[i];
     const bool last = i + 1 == p.n;
@@ -558,27 +600,29 @@ __global__ void __launch_bounds__(NW * 32, 1) planar_chain_all(const __grid_cons
     const Rect rc = rect_of(k, warp);
     for (int item = blockIdx.x; item < k.items; item += gridDim.x) {
       const Tile tl = tile_of(p, k, item, smem);
+      float* es2 = tl.es + (k.NPOS + 4) * ESW;   // the second es buffer
       __syncthreads();  // the previous tile's readers of the tile memory are done
-      if (!ready) copy_chunk(p, k, 0, smem + slot * p.chunk_max, tid, NTH);
+      while (issued < q + 2) issue(p, smem, cur, issued, tid, NTH);   // chunks q and q+1
       fill_where(p, k, tl, tid, NTH);
       __syncthreads();
       load_tile(p, k, tl, in, tid, NTH);
+      cp_async_wait_one();   // chunk q
+      __syncthreads();
+      stage_a(k, 0, tl, smem + (q % 3) * p.chunk_max, cap, warp, NW, tid, NTH);
       float acc[PMX][PNX][4];
       zero_acc(acc);
-      for (int ch = 0; ch < k.nchunks; ++ch) {
-        cp_async_wait_all();
-        __syncthreads();  // chunk ch has landed; every reader of chunk ch-1, es and ds is done
-        int nc;
-        const Block* nk = next_chunk(p, i, item, ch, &nc);
-        if (nk) copy_chunk(p, *nk, nc, smem + (slot ^ 1) * p.chunk_max, tid, NTH);
-        if (ch + 1 == k.nchunks) ready = nk != nullptr;
-        const unsigned char* cur = smem + slot * p.chunk_max;
-        stage_a(k, ch, tl, cur, cap, warp, NW, tid, NTH);
+      for (int ch = 0; ch < k.nchunks; ++ch, ++q) {
+        cp_async_wait_all();   // chunk q+1
+        __syncthreads();       // es[ch % 2] written; ds and chunk q-1's buffer free
+        issue(p, smem, cur, issued, tid, NTH);   // chunk q+2, into chunk q-1's buffer
+        Tile ta = tl, tb = tl;
+        ta.es = (ch & 1) ? tl.es : es2;   // the expand of chunk ch+1
+        tb.es = (ch & 1) ? es2 : tl.es;   // the depthwise of chunk ch
+        if (ch + 1 < k.nchunks) stage_a(k, ch + 1, ta, smem + ((q + 1) % 3) * p.chunk_max, cap, warp, NW, tid, NTH);
+        const unsigned char* cb = smem + (q % 3) * p.chunk_max;
+        stage_b(k, tb, tl.ds0, cb, cap, tid, NTH);
         __syncthreads();
-        stage_b(k, tl, tl.ds0, cur, cap, tid, NTH);
-        __syncthreads();
-        if (rc.has) stage_c(k, rc, tl.ds0, cur, acc);
-        slot ^= 1;
+        if (rc.has) stage_c(k, rc, tl.ds0, cb, acc);
       }
       epilogue(p, k, rc, tl, out, acc);
     }
@@ -610,7 +654,8 @@ __device__ __forceinline__ void producer_main(const Chain& p, unsigned char* sme
   const int warp = warp_index();
   const float cap = act_cap(p);
   const int all = p.threads;
-  int q = 0, issued = -1, tiles = 0;
+  Cursor cur = first_chunk(p);
+  int q = 0, issued = 0, tiles = 0;
   for (int i = 0; i < p.n; ++i) {
     const Block& k = p.blk[i];
     const __nv_bfloat16* in = i == 0 ? p.x : p.scratch[(i - 1) & 1];
@@ -626,19 +671,8 @@ __device__ __forceinline__ void producer_main(const Chain& p, unsigned char* sme
       for (int ch = 0; ch < k.nchunks; ++ch, ++q) {
         // the consumers are done with chunk q - 2: ds[q % 2] and buffer (q + 1) % 3 are free
         if (q >= 2) bar_sync(kEmpty + (q & 1), all);
-        if (issued < q) {   // this chunk's copy was not started ahead
-          copy_chunk(p, k, ch, smem + (q % 3) * p.chunk_max, tid, PTH);
-          issued = q;
-        }
-        int nc;
-        const Block* nk = next_chunk(p, i, item, ch, &nc);
-        if (nk) {
-          copy_chunk(p, *nk, nc, smem + ((q + 1) % 3) * p.chunk_max, tid, PTH);
-          issued = q + 1;
-          cp_async_wait_one();
-        } else {
-          cp_async_wait_all();
-        }
+        while (issued < q + 2) issue(p, smem, cur, issued, tid, PTH);   // chunks q and q+1
+        cp_async_wait_one();    // chunk q
         bar_sync(kProd, PTH);   // chunk q has landed for every producer; xs is written; es is free
         const unsigned char* cur = smem + (q % 3) * p.chunk_max;
         stage_a(k, ch, tl, cur, cap, warp, NP, tid, PTH);
@@ -709,9 +743,9 @@ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // The sizes a block's table entry implies; the same arithmetic as
 // ChainLayout, chain_tile_smem and _rect's coverage in ops/planar_mbconv.py.
-// `rect_warps` share the project, `nds` ds buffers. Returns the bytes of its
-// tile, or -1 if the entry does not fit.
-int derive(Block& k, int B, int H, int W, int rect_warps, int pmx, int pnx, int nds) {
+// `rect_warps` share the project; `nes` es and `nds` ds buffers. Returns the
+// bytes of its tile, or -1 if the entry does not fit.
+int derive(Block& k, int B, int H, int W, int rect_warps, int pmx, int pnx, int nes, int nds) {
   if (k.cin < 1 || k.ce < 1 || k.cout < 1 || k.cin > kMaxCin || k.ck != CK) return -1;
   if (!k.expand && k.ce != k.cin) return -1;
   if (k.skip && k.cin != k.cout) return -1;
@@ -742,7 +776,7 @@ int derive(Block& k, int B, int H, int W, int rect_warps, int pmx, int pnx, int 
   k.chunk_bytes = k.off_bd + CK * 4;
   k.off_xs = round_up(4 * k.NPOS, 16);
   k.off_es = k.off_xs + k.cin_pad * k.XP * 2;
-  k.off_ds = k.off_es + (k.NPOS + 4) * ESW * 4;
+  k.off_ds = k.off_es + nes * (k.NPOS + 4) * ESW * 4;
   k.ds_elems = k.MT * 16 * DSW;
   return k.off_ds + nds * k.ds_elems * 2;
 }
@@ -820,7 +854,7 @@ extern "C" int tcf_planar_chain(
   const bool split = consumers > 0;
   Chain p;   // the launch copies it
   p.n = n; p.B = B; p.H = H; p.W = W; p.Wp = Wp; p.relu6 = relu6;
-  p.nbuf = split ? 3 : 2;
+  p.nbuf = 3;
   long long at = 0;
   int chunk_max = 0, tile_max = 0, most_items = 0;
   for (int i = 0; i < n; ++i) {
@@ -828,7 +862,7 @@ extern "C" int tcf_planar_chain(
     const int* t = table + kTable * i;
     k.cin = t[0]; k.ce = t[1]; k.cout = t[2]; k.skip = t[3]; k.expand = t[4];
     k.ck = t[5]; k.th = t[6]; k.tw = t[7]; k.pm = t[8]; k.pn = t[9];
-    const int tile = derive(k, B, H, W, split ? consumers : producers, pmx, pnx, split ? 2 : 1);
+    const int tile = derive(k, B, H, W, split ? consumers : producers, pmx, pnx, split ? 1 : 2, split ? 2 : 1);
     if (tile < 0 || (i > 0 && k.cin != p.blk[i - 1].cout)) return static_cast<int>(cudaErrorInvalidValue);
     k.wofs = at;
     at += static_cast<long long>(k.nchunks) * k.chunk_bytes + round_up(4 * k.cout, 16);
@@ -848,6 +882,6 @@ extern "C" int tcf_planar_chain(
   p.packed = static_cast<const uint8_t*>(packed);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!split && producers == 16 && pmx == 2 && pnx == 4) return launch_all<16, 2, 4>(p, smem_bytes, grid, s);
-  if (producers == 8 && consumers == 8 && pmx == 4 && pnx == 5) return launch_split<8, 8, 4, 5, 88, 168>(p, smem_bytes, grid, s);
+  if (producers == 8 && consumers == 8 && pmx == 4 && pnx == 5) return launch_split<8, 8, 4, 5, 96, 160>(p, smem_bytes, grid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

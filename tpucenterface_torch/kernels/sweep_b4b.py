@@ -53,11 +53,10 @@ def _prefix(packed: pm.PackedChain, plan: pm.ChainPlan, k: int, b: int, h: int, 
     shapes = packed.shapes[:k]
     end = packed.offsets[k - 1] + pm.ChainLayout(shapes[-1]).nbytes
     sub = pm.PackedChain(packed.data[:end], shapes, packed.skips[:k])
-    nbuf, nds = (3, 2) if plan.consumers else (2, 1)
     chunk = max(pm.ChainLayout(s).chunk_bytes for s in shapes)
-    tile = max(pm.chain_tile_smem(bp.tile_h, bp.tile_w, s.cin, nds) for bp, s in zip(plan.blocks, shapes))
+    tile = max(pm.chain_tile_smem(bp.tile_h, bp.tile_w, s.cin, plan.consumers > 0) for bp, s in zip(plan.blocks, shapes))
     items = max(b * -(-h // bp.tile_h) * -(-w // bp.tile_w) for bp in plan.blocks[:k])
-    return sub, dataclasses.replace(plan, blocks=plan.blocks[:k], smem_bytes=nbuf * chunk + tile,
+    return sub, dataclasses.replace(plan, blocks=plan.blocks[:k], smem_bytes=3 * chunk + tile,
                                     grid=min(items, plan.grid))
 
 

@@ -231,12 +231,12 @@ NUM_SMS = 132          # H100 SXM
 # setmaxnreg giving the consumers more registers. A warp of the project owns a
 # rectangle of at most PMX M tiles (16 positions) by PNX N tiles (8 output
 # channels), whose float32 sums stay in registers over all chunks, four a tile
-# and thread: 32 of the 128 registers a thread has in the first, 80 of the 168
+# and thread: 32 of the 128 registers a thread has in the first, 80 of the 160
 # a consumer thread takes in the second, which holds Cout 320 on a 10x10 tile.
 CHAIN_VARIANTS = ((16, 0, 2, 4), (8, 8, 4, 5))
 # the registers a thread of the project's warps has in each variant (the
 # launch's 128, or the consumers' setmaxnreg)
-CHAIN_REGISTERS = {(16, 0, 2, 4): 128, (8, 8, 4, 5): 168}
+CHAIN_REGISTERS = {(16, 0, 2, 4): 128, (8, 8, 4, 5): 160}
 # output tiles (rows, columns) the planner weighs, each cut to the map
 CHAIN_TILES = ((16, 16), (10, 20), (8, 32), (12, 12), (8, 20), (8, 16), (10, 10), (8, 10), (8, 8), (5, 10),
                (4, 16), (5, 5), (4, 8), (4, 4), (2, 8), (2, 2), (1, 8), (1, 1))
@@ -313,17 +313,19 @@ class ChainLayout:
         return self.nchunks * self.chunk_bytes + _round_up(4 * self.shape.cout, 16)
 
 
-def chain_tile_smem(tile_h: int, tile_w: int, cin: int, nds: int = 2) -> int:
+def chain_tile_smem(tile_h: int, tile_w: int, cin: int, split: bool) -> int:
     """Shared memory of one tile of a block (csrc/planar_chain.cu, `derive`):
     the halo positions' offsets (int32), the input tile with its halo,
     channel-major (bf16, rows of XP positions), the expanded chunk
     position-major (float32, four positions more for the depthwise's reads
-    past a row), the depthwise output of `nds` chunks position-major
-    (bf16)."""
+    past a row; two chunks when every warp takes every stage), the
+    depthwise output position-major (bf16; two chunks with producer and
+    consumer warps, `split`)."""
     npos = (tile_h + 2) * (tile_w + 2)
     mt = -(-(tile_h * tile_w) // 16)
     xp = _round_up(npos, 16) + 8
-    return (_round_up(4 * npos, 16) + _round_up(cin, 16) * xp * 2 + (npos + 4) * (CHAIN_CK + 8) * 4
+    nes, nds = (1, 2) if split else (2, 1)
+    return (_round_up(4 * npos, 16) + _round_up(cin, 16) * xp * 2 + nes * (npos + 4) * (CHAIN_CK + 8) * 4
             + nds * mt * 16 * (CHAIN_CK + 8) * 2)
 
 
@@ -343,9 +345,8 @@ class ChainBlockPlan:
 class ChainPlan:
     """One launch of the chain kernel: a plan a block, the variant (warps,
     consumer warps, the largest rectangle PMX x PNX), the dynamic shared
-    memory (the chunk buffers of the widest chunk, three with consumer warps
-    and two without, then the largest tile) and the cooperative grid (one
-    thread block an SM)."""
+    memory (three chunk buffers of the widest chunk, then the largest tile)
+    and the cooperative grid (one thread block an SM)."""
 
     blocks: Tuple[ChainBlockPlan, ...]
     producers: int
@@ -418,14 +419,13 @@ def _plan_variant(shapes, b, h, w, variant, sms, tiles=None):
     each block on its cheapest tile of `tiles` (default: the planner's, cut to
     the map) that fits; None if some block has none."""
     producers, consumers, pmx, pnx = variant
-    nbuf, nds = (3, 2) if consumers else (2, 1)
     chunk = max(ChainLayout(s).chunk_bytes for s in shapes)
-    budget = MAX_SMEM - nbuf * chunk
+    budget = MAX_SMEM - 3 * chunk
     plans, cost = [], 0.0
     for s in shapes:
         best = None
         for th, tw in tiles or _tiles(h, w):
-            if chain_tile_smem(th, tw, s.cin, nds) > budget:
+            if chain_tile_smem(th, tw, s.cin, consumers > 0) > budget:
                 continue
             rect = _rect(-(-(th * tw) // 16), -(-s.cout // 8), consumers or producers, pmx, pnx)
             if rect is None:
@@ -439,7 +439,7 @@ def _plan_variant(shapes, b, h, w, variant, sms, tiles=None):
         cost += best[0] + 4000   # the grid-wide sync after each block
         plans.append(best[1])
     items = max(b * -(-h // p.tile_h) * -(-w // p.tile_w) for p in plans)
-    smem = nbuf * chunk + max(chain_tile_smem(p.tile_h, p.tile_w, s.cin, nds) for p, s in zip(plans, shapes))
+    smem = 3 * chunk + max(chain_tile_smem(p.tile_h, p.tile_w, s.cin, consumers > 0) for p, s in zip(plans, shapes))
     return cost, ChainPlan(tuple(plans), producers, consumers, pmx, pnx, smem, min(items, sms))
 
 
