@@ -238,8 +238,8 @@ CHAIN_VARIANTS = ((16, 0, 2, 4), (8, 8, 4, 5))
 # launch's 128, or the consumers' setmaxnreg)
 CHAIN_REGISTERS = {(16, 0, 2, 4): 128, (8, 8, 4, 5): 160}
 # output tiles (rows, columns) the planner weighs, each cut to the map
-CHAIN_TILES = ((16, 16), (10, 20), (8, 32), (12, 12), (8, 20), (8, 16), (10, 10), (8, 10), (8, 8), (5, 10),
-               (4, 16), (5, 5), (4, 8), (4, 4), (2, 8), (2, 2), (1, 8), (1, 1))
+CHAIN_TILES = ((16, 16), (10, 20), (8, 32), (12, 12), (8, 20), (8, 16), (10, 14), (10, 10), (8, 10), (8, 8),
+               (5, 10), (4, 16), (5, 5), (4, 8), (4, 4), (2, 8), (2, 2), (1, 8), (1, 1))
 
 
 def _round_up(v: int, m: int) -> int:
