@@ -24,7 +24,8 @@
 // back on this card is latency inside a thread block, not the tensor cores
 // or the memory: a chunk's expand, depthwise and project are short chains of
 // dependent shared-memory loads and arithmetic split over 16 warps, between
-// barriers (a clock64 profile put the producers' issue rate near 40%).
+// barriers, and a clock64 profile of the phases showed the SM's issue slots
+// idle most of a chunk.
 //
 // Design, and what each part does about that:
 // - Block k+1 reads block k's neighbouring tiles, so the chain is one
@@ -58,7 +59,7 @@
 //   registers to the consumers, whose 80 float32 sums a thread hold Cout 320
 //   on a 10x10 tile. The warp index is broadcast from lane 0, so that the
 //   compiler knows the branches around ldmatrix and mma to be warp-uniform
-//   (else it puts a WARPSYNC before each, which costs the project 4x).
+//   (else it puts a WARPSYNC before each, which serialises the project).
 // - The input tile with its halo is loaded channel-major (a channel's tile row
 //   is contiguous in the planar input), zeros outside the image and past Cin.
 // - Stage A, the expand: mma.sync.m16n8k16 over the halo, A fragments by
@@ -94,6 +95,7 @@ constexpr int kMaxBlocks = 16;
 constexpr int kMaxCin = 256;
 constexpr int kMaxSmem = 232448;      // bytes a block may use on sm_90
 constexpr int kMaxDevices = 64;
+constexpr int kBuffers = 3;           // chunk buffers
 
 struct Block {
   // the caller's table
@@ -112,7 +114,7 @@ struct Block {
 struct Chain {
   Block blk[kMaxBlocks];
   int n, B, H, W, Wp, relu6;
-  int chunk_max, nbuf;                // bytes of one chunk buffer; chunk buffers
+  int chunk_max;                      // bytes of one of the kBuffers chunk buffers
   int threads;                        // of a thread block
   const __nv_bfloat16* x;
   __nv_bfloat16* out;
@@ -179,8 +181,8 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-// Starts the copy of chunk `c` of block `k` into `dst`; the producer's
-// `nthreads` threads take part, each commits one group.
+// Starts the copy of chunk `c` of block `k` into `dst`; the `nthreads` threads
+// that copy take part, each commits one group.
 __device__ __forceinline__ void copy_chunk(const Chain& p, const Block& k, int c, unsigned char* dst, int t,
                                            int nthreads) {
   const uint8_t* src = p.packed + k.wofs + static_cast<long long>(c) * k.chunk_bytes;
@@ -207,7 +209,6 @@ __device__ __forceinline__ void regs_down() { asm volatile("setmaxnreg.dec.sync.
 
 template <int R>
 __device__ __forceinline__ void regs_up() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R)); }
-
 
 // Shared memory: three chunk buffers of p.chunk_max bytes, then one tile:
 //   where [NPOS] i32          row * Wp + column of each halo position, -1 outside the image
@@ -239,7 +240,7 @@ __device__ __forceinline__ Tile tile_of(const Chain& p, const Block& k, int item
   t.img = rest / k.tiles_y;
   t.oy0 = ty * k.th;
   t.ox0 = tx * k.tw;
-  unsigned char* base = smem + p.nbuf * p.chunk_max;
+  unsigned char* base = smem + kBuffers * p.chunk_max;
   t.where = reinterpret_cast<int*>(base);
   t.xs = reinterpret_cast<__nv_bfloat16*>(base + k.off_xs);
   t.es = reinterpret_cast<float*>(base + k.off_es);
@@ -274,12 +275,12 @@ __device__ __forceinline__ Cursor first_chunk(const Chain& p) {
   return c;
 }
 
-// Starts the copy of the cursor's chunk into buffer `issued` % 3 and moves the
+// Starts the copy of the cursor's chunk into buffer `issued` % kBuffers and moves the
 // cursor on; past the end it commits an empty group, so that every call adds
 // one group. `t` is this thread among the `nth` that copy.
 __device__ __forceinline__ void issue(const Chain& p, unsigned char* smem, Cursor& c, int& issued, int t, int nth) {
   if (c.i < p.n) {
-    copy_chunk(p, p.blk[c.i], c.ch, smem + (issued % 3) * p.chunk_max, t, nth);
+    copy_chunk(p, p.blk[c.i], c.ch, smem + (issued % kBuffers) * p.chunk_max, t, nth);
     c = advance(p, c);
   } else {
     cp_async_commit();
@@ -608,7 +609,7 @@ __global__ void __launch_bounds__(NW * 32, 1) planar_chain_all(const __grid_cons
       load_tile(p, k, tl, in, tid, NTH);
       cp_async_wait_one();   // chunk q
       __syncthreads();
-      stage_a(k, 0, tl, smem + (q % 3) * p.chunk_max, cap, warp, NW, tid, NTH);
+      stage_a(k, 0, tl, smem + (q % kBuffers) * p.chunk_max, cap, warp, NW, tid, NTH);
       float acc[PMX][PNX][4];
       zero_acc(acc);
       for (int ch = 0; ch < k.nchunks; ++ch, ++q) {
@@ -618,8 +619,8 @@ __global__ void __launch_bounds__(NW * 32, 1) planar_chain_all(const __grid_cons
         Tile ta = tl, tb = tl;
         ta.es = (ch & 1) ? tl.es : es2;   // the expand of chunk ch+1
         tb.es = (ch & 1) ? es2 : tl.es;   // the depthwise of chunk ch
-        if (ch + 1 < k.nchunks) stage_a(k, ch + 1, ta, smem + ((q + 1) % 3) * p.chunk_max, cap, warp, NW, tid, NTH);
-        const unsigned char* cb = smem + (q % 3) * p.chunk_max;
+        if (ch + 1 < k.nchunks) stage_a(k, ch + 1, ta, smem + ((q + 1) % kBuffers) * p.chunk_max, cap, warp, NW, tid, NTH);
+        const unsigned char* cb = smem + (q % kBuffers) * p.chunk_max;
         stage_b(k, tb, tl.ds0, cb, cap, tid, NTH);
         __syncthreads();
         if (rc.has) stage_c(k, rc, tl.ds0, cb, acc);
@@ -674,10 +675,10 @@ __device__ __forceinline__ void producer_main(const Chain& p, unsigned char* sme
         while (issued < q + 2) issue(p, smem, cur, issued, tid, PTH);   // chunks q and q+1
         cp_async_wait_one();    // chunk q
         bar_sync(kProd, PTH);   // chunk q has landed for every producer; xs is written; es is free
-        const unsigned char* cur = smem + (q % 3) * p.chunk_max;
-        stage_a(k, ch, tl, cur, cap, warp, NP, tid, PTH);
+        const unsigned char* buf = smem + (q % kBuffers) * p.chunk_max;
+        stage_a(k, ch, tl, buf, cap, warp, NP, tid, PTH);
         bar_sync(kProd, PTH);
-        stage_b(k, tl, tl.ds0 + (q & 1) * k.ds_elems, cur, cap, tid, PTH);
+        stage_b(k, tl, tl.ds0 + (q & 1) * k.ds_elems, buf, cap, tid, PTH);
         bar_arrive(kFull + (q & 1), all);   // ds[q % 2] is written; chunk q's w2 has landed
       }
     }
@@ -710,7 +711,7 @@ __device__ __forceinline__ void consumer_main(const Chain& p, unsigned char* sme
       zero_acc(acc);
       for (int ch = 0; ch < k.nchunks; ++ch, ++q) {
         bar_sync(kFull + (q & 1), all);
-        if (rc.has) stage_c(k, rc, tl.ds0 + (q & 1) * k.ds_elems, smem + (q % 3) * p.chunk_max, acc);
+        if (rc.has) stage_c(k, rc, tl.ds0 + (q & 1) * k.ds_elems, smem + (q % kBuffers) * p.chunk_max, acc);
         bar_arrive(kEmpty + (q & 1), all);   // ds[q % 2] and chunk q's buffer may be refilled
       }
       epilogue(p, k, rc, tl, out, acc);
@@ -854,7 +855,6 @@ extern "C" int tcf_planar_chain(
   const bool split = consumers > 0;
   Chain p;   // the launch copies it
   p.n = n; p.B = B; p.H = H; p.W = W; p.Wp = Wp; p.relu6 = relu6;
-  p.nbuf = 3;
   long long at = 0;
   int chunk_max = 0, tile_max = 0, most_items = 0;
   for (int i = 0; i < n; ++i) {
@@ -871,7 +871,7 @@ extern "C" int tcf_planar_chain(
     most_items = most_items > k.items ? most_items : k.items;
   }
   p.chunk_max = chunk_max;
-  const long long smem = static_cast<long long>(p.nbuf) * chunk_max + tile_max;
+  const long long smem = static_cast<long long>(kBuffers) * chunk_max + tile_max;
   if (at != packed_bytes || smem != smem_bytes || smem > kMaxSmem || grid < 1 || grid > most_items) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

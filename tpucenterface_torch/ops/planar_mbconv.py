@@ -36,8 +36,8 @@ The chain kernel takes its weights packed once (`pack_planar_chain`: block
 by block, chunk by chunk of 32 expanded channels, each chunk one 16-byte
 aligned slab in the layout of its shared-memory buffer) and a launch plan that
 `plan_planar_chain` fits to the map (per block the tile, the chunk width and
-each warp's rectangle of project tiles; per launch the warps, the shared
-memory and the cooperative grid).
+each warp's rectangle of project tiles; per launch the kernel variant, the
+shared memory and the cooperative grid).
 
 A CUDA tensor launches the kernel (bfloat16 input only) or raises; a CPU
 tensor takes the plain version. There is no `interpret` argument as in the
@@ -463,8 +463,8 @@ def plan_planar_chain(shapes, b: int, h: int, w: int, sms: int = NUM_SMS) -> Cha
     (Cin, Ce, Cout[, expand]) tuples) on a (b, h, w) map on `sms` SMs: of
     the variants of CHAIN_VARIANTS, the one whose blocks, each on the tile
     that `_chain_block_cost` finds cheapest within the shared memory, cost
-    least in all. Raises ValueError
-    on shapes the kernel does not take or if no plan fits."""
+    least in all. Raises ValueError on shapes the kernel does not take or if
+    no plan fits."""
     shapes = _chain_shapes(shapes)
     if min(b, h, w, sms) < 1:
         raise ValueError(f"a non-empty map and at least one SM, got {(b, h, w, sms)}")
