@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc into build/kernels/, one nvcc per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
-   tie-heavy inputs; the one-block planar kernel, the int8 1x1 conv and the
+   tie-heavy inputs (the decode at the buckets' maps, batch 1, K = 1 and
+   K = H*W, on constant, underflowing and one-band maps:
+   DECODE_KERNEL_CASES); the one-block planar kernel, the int8 1x1 conv and the
    stride-2 int8 block, which no engine calls, are held to their plain
    versions here and timed in phase 5, and are on no path. The int8 kernels
    are integer-exact up to float32 epilogues that round as their plain
@@ -41,7 +43,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       against the bf16 module forward on the same card (the float32 forward
       as arbiter), and at 320 against the port's CPU run under the same
       scales; the B7 route against the library route as well;
-5. times with CUDA events (median after warm-up), and torch.profiler
+5. times with CUDA events (median after warm-up; the decode at bs32 and
+   bs1 @ 640 and at DECODE_TIMED_SHAPES), and torch.profiler
    summaries of one bs32@640 batch of the module forward, of the fast engine,
    of the planar engine and of both quantized routes (device busy share, top
    device ops).
@@ -145,6 +148,36 @@ B4B_KERNEL_SHAPES = (
     ("sixteen blocks, 2x12x12", 2, 12, 12, 32, [(96, 32)] * 16, None, True, 0.5),
     ("widest not first, 2x16x16", 2, 16, 16, 24, [(96, 16), (96, 64), (384, 32), (192, 32)], None, True, 2.0),
 )
+# B2's kernel phase beyond the main path's heads, each held to the plain
+# version with indices equal (name, heads, (B, H, W), max_dets, wh_log): heads
+# "random" (3 randn logits), "sparse" (a flat -8 map with a few peaks and a
+# tied plateau), "separate" (random, wh and off as their own tensors),
+# "constant" (every cell ties and is a peak), "underflow" (logits -120: every
+# sigmoid is 0, so the K slots are the lowest-index zeros), "band" (one band
+# of random logits among underflowing rows: the other bands keep only zeros);
+# the buckets' maps at 416, 640, 800 and 1024, batch 1, K = 1 and K = H*W.
+# The first six are the parent's cases, on the same inputs.
+# tests/test_torch_decode_select.py plans every one of them on the CPU.
+DECODE_KERNEL_CASES = (
+    ("random 3*randn (32,160,160)", "random", (32, 160, 160), 200, False),
+    ("sparse+plateaus (8,160,160)", "sparse", (8, 160, 160), 200, False),
+    ("wh_log (32,160,160)", "random", (32, 160, 160), 200, True),
+    ("1024 bucket (2,256,256)", "random", (2, 256, 256), 200, False),
+    ("K > H*W (3,7,9)", "random", (3, 7, 9), 200, False),
+    ("separate heads (4,40,40)", "separate", (4, 40, 40), 100, False),
+    ("batch 1 (1,160,160)", "random", (1, 160, 160), 200, False),
+    ("416 bucket (4,104,104)", "random", (4, 104, 104), 200, False),
+    ("800 bucket (4,200,200)", "random", (4, 200, 200), 200, False),
+    ("K=1 (8,160,160)", "random", (8, 160, 160), 1, False),
+    ("K=H*W (2,12,20)", "random", (2, 12, 20), 240, False),
+    ("constant map (4,40,40)", "constant", (4, 40, 40), 200, False),
+    ("all-underflow map (4,160,160)", "underflow", (4, 160, 160), 200, False),
+    ("one rich band beside empty ones (4,160,160)", "band", (4, 160, 160), 200, False),
+)
+# B2's timed shapes beyond the main path's heads (bs32 @ 640, K = 200): one
+# 640 image (the flagship's heads of the first image), the 320 bucket at bs32
+# and the 1024 bucket at batch 2 (random heads).
+DECODE_TIMED_SHAPES = ((32, 80, 80), (2, 256, 256))
 # The blocks of the default model with distinct kernel shapes at 640, and how
 # many blocks of a forward share each shape (FastEngine.kernel_blocks(640)).
 MBCONV_BLOCKS_640 = {0: 1, 2: 1, 4: 2, 7: 3, 10: 1, 11: 2}
@@ -416,24 +449,47 @@ def _sparse_feats(gen, b, h, w, dev):
     return _fused_feats(hm.to(dev), wh.to(dev), off.to(dev))
 
 
+def _filled_feats(gen, b, h, w, dev, logit, rich_rows=None):
+    """Every logit `logit` (a constant map: every cell ties and is a peak; at
+    -120 every sigmoid underflows to 0), but 3 randn logits on `rich_rows`."""
+    hm = torch.full((b, h, w, 1), logit)
+    if rich_rows is not None:
+        hm[:, rich_rows] = 3.0 * torch.randn(b, rich_rows.stop - rich_rows.start, w, 1, generator=gen)
+    wh = 4.0 * torch.rand(b, h, w, 2, generator=gen) - 0.5
+    off = torch.rand(b, h, w, 2, generator=gen) - 0.5
+    return _fused_feats(hm.to(dev), wh.to(dev), off.to(dev))
+
+
+def decode_case_feats(gen, heads, shape, dev):
+    """The heads of one case of DECODE_KERNEL_CASES."""
+    b, h, w = shape
+    if heads == "random":
+        return _random_feats(gen, b, h, w, dev)
+    if heads == "sparse":
+        return _sparse_feats(gen, b, h, w, dev)
+    if heads == "separate":
+        return {k: v.contiguous() for k, v in _random_feats(gen, b, h, w, dev).items() if k != "whoff"}
+    if heads == "constant":
+        return _filled_feats(gen, b, h, w, dev, 0.7)
+    if heads == "underflow":
+        return _filled_feats(gen, b, h, w, dev, -120.0)
+    if heads == "band":
+        return _filled_feats(gen, b, h, w, dev, -120.0, rich_rows=slice(h // 2, h // 2 + 12))
+    raise ValueError(heads)
+
+
 def phase_kernels_decode(det_feats):
-    """decode_feats_fused (CUDA) against decode_feats_fused_plain on the card.
-    Returns the largest error seen."""
+    """decode_feats_fused (CUDA) against decode_feats_fused_plain on the card,
+    at the main path's heads and at DECODE_KERNEL_CASES. Returns the largest
+    error seen."""
     from tpucenterface_torch.config import DecodeConfig
-    from tpucenterface_torch.decode.fused_decode import decode_feats_fused, decode_feats_fused_plain
+    from tpucenterface_torch.decode.fused_decode import decode_feats_fused, decode_feats_fused_plain, plan_decode
 
     dev = det_feats["hm"].device
     gen = torch.Generator().manual_seed(1234)
-    cases = [
-        ("main-path heads bs32@640", det_feats, DecodeConfig(max_dets=200)),
-        ("random 3*randn (32,160,160)", _random_feats(gen, 32, 160, 160, dev), DecodeConfig(max_dets=200)),
-        ("sparse+plateaus (8,160,160)", _sparse_feats(gen, 8, 160, 160, dev), DecodeConfig(max_dets=200)),
-        ("wh_log (32,160,160)", _random_feats(gen, 32, 160, 160, dev), DecodeConfig(max_dets=200, wh_log=True)),
-        ("1024 bucket (2,256,256)", _random_feats(gen, 2, 256, 256, dev), DecodeConfig(max_dets=200)),
-        ("K > H*W (3,7,9)", _random_feats(gen, 3, 7, 9, dev), DecodeConfig(max_dets=200)),
-        ("separate heads (4,40,40)", {k: v.contiguous() for k, v in _random_feats(gen, 4, 40, 40, dev).items()
-                                      if k != "whoff"}, DecodeConfig(max_dets=100)),
-    ]
+    cases = [("main-path heads bs32@640", det_feats, DecodeConfig(max_dets=200))]
+    cases += [(name, decode_case_feats(gen, heads, shape, dev), DecodeConfig(max_dets=k, wh_log=wh_log))
+              for name, heads, shape, k, wh_log in DECODE_KERNEL_CASES]
     worst = 0.0
     for name, feats, cfg in cases:
         kb, ks, ki = decode_feats_fused(feats, cfg)
@@ -444,8 +500,10 @@ def phase_kernels_decode(det_feats):
             raise AssertionError(f"[kernels] {name}: indices differ at {bad}")
         es = (ks - ps).abs().max().item()
         eb = (kb - pb).abs().max().item()
-        log(f"[kernels] decode {name}: K={ks.shape[1]} indices equal, "
-            f"max |score err| {es:.3g} (atol {SCORE_ATOL}), max |box err| {eb:.3g} (atol {BOX_ATOL})")
+        b, h, w, _ = feats["hm"].shape
+        plan = plan_decode(b, h, w, ks.shape[1])
+        log(f"[kernels] decode {name}: K={ks.shape[1]} (bands of {plan.rows} rows, {plan.candidates} candidates) "
+            f"indices equal, max |score err| {es:.3g} (atol {SCORE_ATOL}), max |box err| {eb:.3g} (atol {BOX_ATOL})")
         if not (es <= SCORE_ATOL and eb <= BOX_ATOL):
             raise AssertionError(f"[kernels] {name}: errors {es}, {eb} over the limits")
         worst = max(worst, es, eb)
@@ -1229,26 +1287,37 @@ def bound(nbytes, ops_by_rate):
 
 
 def times_decode(det_feats):
-    """The decode kernel at bs32@640, K=200."""
+    """The decode kernel at the main path's heads (bs32@640, K=200), and at
+    one 640 image and DECODE_TIMED_SHAPES: one call between CUDA events (the
+    wrapper's host time included), beside the bound, the plain version and
+    the reference decode with the two-stage top-K."""
     from tpucenterface_torch.config import DecodeConfig
     from tpucenterface_torch.decode.fused_decode import decode_feats_fused, decode_feats_fused_plain
     from tpucenterface_torch.decode.reference import decode_feats_with_idx
 
     cfg = DecodeConfig(max_dets=200)
     lib_cfg = DecodeConfig(max_dets=200, fast_topk=True)
-    b, h, w, _ = det_feats["hm"].shape
-    k = cfg.max_dets
-    # least work: hm read once, wh/off read at the K peaks, boxes, scores and
-    # indices written once; per cell the sigmoid (4), 8 window maxima and the
-    # peak select, float32
-    nbytes = b * h * w * 4 + b * k * 4 * 4 + b * k * (4 + 1 + 1) * 4
-    bound_ms, bound_by = bound(nbytes, [(b * h * w * 13, F32_OPS_PER_S)])
-    return {
-        "ms": cuda_ms(lambda: decode_feats_fused(det_feats, cfg), iters=50),
-        "plain_ms": cuda_ms(lambda: decode_feats_fused_plain(det_feats, cfg), iters=50),
-        "library_ms": cuda_ms(lambda: decode_feats_with_idx(det_feats, lib_cfg), iters=50),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    gen = torch.Generator().manual_seed(17)
+    heads = [det_feats, {name: t[:1] for name, t in det_feats.items()}]
+    heads += [_random_feats(gen, *shape, det_feats["hm"].device) for shape in DECODE_TIMED_SHAPES]
+    shapes = []
+    for feats in heads:
+        b, h, w, _ = feats["hm"].shape
+        k = min(cfg.max_dets, h * w)
+        # least work: hm read once, wh/off read at the K peaks, boxes, scores and
+        # indices written once; per cell the sigmoid (4), 8 window maxima and the
+        # peak select, float32
+        nbytes = b * h * w * 4 + b * k * 4 * 4 + b * k * (4 + 1 + 1) * 4
+        bound_ms, bound_by = bound(nbytes, [(b * h * w * 13, F32_OPS_PER_S)])
+        shapes.append({
+            "heads": [b, h, w], "k": k,
+            "ms": cuda_ms(lambda: decode_feats_fused(feats, cfg), iters=50),
+            "plain_ms": cuda_ms(lambda: decode_feats_fused_plain(feats, cfg), iters=50),
+            "library_ms": cuda_ms(lambda: decode_feats_with_idx(feats, lib_cfg), iters=50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    return {**{key: shapes[0][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "shapes": shapes}
 
 
 def times_mbconv(det, block_inputs):

@@ -89,7 +89,7 @@ def test_import_leaves_jax_out():
         "import tpucenterface_torch.ops.fused_mbconv, tpucenterface_torch.model.fast_forward, "
         "tpucenterface_torch.decode.fused_nms, tpucenterface_torch.kernels.build, "
         "tpucenterface_torch.ops.planar_mbconv, tpucenterface_torch.model.planar_engine, "
-        "tpucenterface_torch.kernels.sweep_b4b; "
+        "tpucenterface_torch.kernels.sweep_b4b, tpucenterface_torch.kernels.sweep_b2; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
