@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, at the shapes the main paths give it, on ragged shapes and on
    tie-heavy inputs (the decode at the buckets' maps, batch 1, K = 1 and
    K = H*W, on constant, underflowing and one-band maps:
-   DECODE_KERNEL_CASES); the one-block planar kernel, the int8 1x1 conv and the
+   DECODE_KERNEL_CASES; the fused MBConv block under the planner's plan and
+   under another plan at each main-path shape, each plan logged; the
+   sigmoid + pseudo-NMS on plateaus across its tile seams); the one-block planar kernel, the int8 1x1 conv and the
    stride-2 int8 block, which no engine calls, are held to their plain
    versions here and timed in phase 5, and are on no path. The int8 kernels
    are integer-exact up to float32 epilogues that round as their plain
@@ -44,7 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       as arbiter), and at 320 against the port's CPU run under the same
       scales; the B7 route against the library route as well;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
-   bs1 @ 640 and at DECODE_TIMED_SHAPES), and torch.profiler
+   bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
+   packed weights, one call on the six weights and back to back; the
+   sigmoid + pseudo-NMS one call and in a CUDA graph), and torch.profiler
    summaries of one bs32@640 batch of the module forward, of the fast engine,
    of the planar engine and of both quantized routes (device busy share, top
    device ops).
@@ -181,6 +185,10 @@ DECODE_TIMED_SHAPES = ((32, 80, 80), (2, 256, 256))
 # The blocks of the default model with distinct kernel shapes at 640, and how
 # many blocks of a forward share each shape (FastEngine.kernel_blocks(640)).
 MBCONV_BLOCKS_640 = {0: 1, 2: 1, 4: 2, 7: 3, 10: 1, 11: 2}
+# The fast engine's kernel shapes at a 320 input (blocks 0, 2, 4-5), held to
+# the plain version at batch 32 on random inputs: (map, Cin, Ce, Cout, expand,
+# skip).
+MBCONV_SHAPES_320 = ((160, 32, 32, 16, False, False), (80, 24, 144, 24, True, True), (40, 32, 192, 32, True, True))
 # dense int8 tensor-core operations a second (H100 SXM data sheet)
 INT8_TC_OPS_PER_S = 1979e12
 # The quantized path: the stride-2 blocks (B6 is held and timed at each; on no
@@ -340,6 +348,52 @@ def cuda_times(fn, iters, warmup=3):
 def cuda_ms(fn, iters, warmup=3):
     """Median milliseconds of `fn()` (see `cuda_times`)."""
     return float(np.median(cuda_times(fn, iters, warmup)))
+
+
+def back_to_back_ms(fn, launches=20, runs=5):
+    """Device milliseconds a call: the median over `runs` of CUDA events
+    around `launches` calls back to back, after warm-up (the host's time
+    between calls is hidden where a call's device time is longer)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls=20, runs=5):
+    """Device milliseconds a call: the median over `runs` of CUDA events
+    around one replay of a CUDA graph of `calls` calls, after warm-up (for
+    calls whose host time is longer than their device time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
 
 
 def device_profile(fn, iters=5):
@@ -543,15 +597,45 @@ def _random_mbconv(gen, b, h, w, cin, ce, cout, expand, dev):
                rnd(cout, scale=0.1))
 
 
+def mbconv_plan_desc(plan):
+    """A B3 launch plan as logged: tile, warps, project rectangle, output
+    channels a block, chunk width."""
+    return (f"{plan.tile_h}x{plan.tile_w} tile, {plan.warps} warps, {plan.pm}x{plan.pn} rectangles, "
+            f"{plan.cout_group} outputs a block, CK {plan.ck}")
+
+
+def _mbconv_check(name, x, args, skip, got, want, plan):
+    """Log and check one B3 output against the plain version; returns max |err|."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"[kernels] mbconv {name}: non-finite output")
+    diff = (got - want).abs()
+    err, differing = diff.max().item(), (diff > 0).float().mean().item()
+    over = (diff > MBCONV_ATOL + MBCONV_RTOL * want.abs()).sum().item()
+    cin, ce, cout = x.shape[-1], args[2].shape[-1], args[4].shape[-1]
+    log(f"[kernels] mbconv {name}: x {tuple(x.shape)} {cin}->{ce}->{cout} skip={skip}, {mbconv_plan_desc(plan)}: "
+        f"max |err| {err:.3g} (max |out| {want.abs().max().item():.3g}), differing {differing:.2e} of values, "
+        f"{over} over atol {MBCONV_ATOL} + rtol {MBCONV_RTOL:.4f}")
+    if over or differing > MBCONV_MAX_DIFFERING:
+        raise AssertionError(f"[kernels] mbconv {name}: {over} values over the tolerance, {differing} differing")
+    return err
+
+
 def phase_kernels_mbconv(block_inputs):
     """fused_mbconv (CUDA) against fused_mbconv_plain on the card: the six
     main-path shapes at batch 32 on the flagship's own activations and
-    weights, and ragged shapes on random ones. Returns {case: max |err|}."""
-    from tpucenterface_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+    weights, the three shapes of a 320 input and ragged shapes on random
+    ones. Main-path shapes run on packed weights under the planner's plan,
+    and once more under another plan of `fused_mbconv_plans` (the first of
+    another tile or warp count); ragged ones on the six weights.
+    Returns {case: max |err|}."""
+    from tpucenterface_torch.ops import fused_mbconv as fm
 
     dev = next(iter(block_inputs.values()))[0].device
     gen = torch.Generator().manual_seed(4321)
-    cases = [(f"block {i} bs32@640", x, args, skip) for i, (x, args, skip) in block_inputs.items()]
+    cases = [(f"block {i} bs32@640", x, args, skip, True) for i, (x, args, skip) in block_inputs.items()]
+    for hw, cin, ce, cout, expand, skip in MBCONV_SHAPES_320:
+        x, args = _random_mbconv(gen, 32, hw, hw, cin, ce, cout, expand, dev)
+        cases.append((f"bs32 {hw}x{hw} of a 320 input, random", x, args, skip, True))
     for name, cin, ce, cout, expand, skip in (
         ("ragged expand+skip 2x26x38", 24, 144, 24, True, True),
         ("ragged expand 2x26x38", 16, 96, 24, True, False),
@@ -560,32 +644,37 @@ def phase_kernels_mbconv(block_inputs):
     ):
         h, w = (19, 33) if cin == 160 else (26, 38)
         x, args = _random_mbconv(gen, 2, h, w, cin, ce, cout, expand, dev)
-        cases.append((name, x, args, skip))
+        cases.append((name, x, args, skip, False))
     errs = {}
-    for name, x, args, skip in cases:
-        got = fused_mbconv(x, *args, skip=skip).float()
+    for name, x, args, skip, main in cases:
+        b, h, w, cin = x.shape
+        ce, cout, expand = args[2].shape[-1], args[4].shape[-1], args[0] is not None
+        plan = fm.plan_fused_mbconv(b, h, w, cin, ce, cout, expand)
+        want = fm.fused_mbconv_plain(x, *args, skip=skip).float()
+        if not main:
+            got = fm.fused_mbconv(x, *args, skip=skip).float()
+            torch.cuda.synchronize()
+            errs[name] = _mbconv_check(name, x, args, skip, got, want, plan)
+            continue
+        packed = fm.pack_fused_mbconv(*args)
+        got = fm.fused_mbconv(x, packed, skip=skip).float()
         torch.cuda.synchronize()
-        want = fused_mbconv_plain(x, *args, skip=skip).float()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"[kernels] mbconv {name}: non-finite output")
-        diff = (got - want).abs()
-        err, differing = diff.max().item(), (diff > 0).float().mean().item()
-        over = (diff > MBCONV_ATOL + MBCONV_RTOL * want.abs()).sum().item()
-        cin, ce, cout = x.shape[-1], args[2].shape[-1], args[4].shape[-1]
-        log(f"[kernels] mbconv {name}: x {tuple(x.shape)} {cin}->{ce}->{cout} skip={skip}: "
-            f"max |err| {err:.3g} (max |out| {want.abs().max().item():.3g}), differing {differing:.2e} of values, "
-            f"{over} over atol {MBCONV_ATOL} + rtol {MBCONV_RTOL:.4f}")
-        if over or differing > MBCONV_MAX_DIFFERING:
-            raise AssertionError(f"[kernels] mbconv {name}: {over} values over the tolerance, {differing} differing")
-        errs[name] = err
-        del got, want, diff
+        errs[name] = _mbconv_check(name, x, args, skip, got, want, plan)
+        # another plan: the first candidate whose tile or warps differ from the planner's
+        other = next(q for q in fm.fused_mbconv_plans(b, h, w, cin, ce, cout, expand)
+                     if (q.tile_h, q.tile_w, q.warps) != (plan.tile_h, plan.tile_w, plan.warps))
+        out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
+        fm.launch_fused_mbconv(x, packed, other, out, skip, True)
+        torch.cuda.synchronize()
+        errs[name + ", another plan"] = _mbconv_check(name + ", another plan", x, args, skip, out.float(), want, other)
+        del got, want, out
     return errs
 
 
 def phase_kernels_nms():
     """sigmoid_pseudo_nms_fused (CUDA) against its plain version on the card,
     bit for bit. Returns the largest error seen (0 or the run fails)."""
-    from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused, sigmoid_pseudo_nms_plain
+    from tpucenterface_torch.decode.fused_nms import NMS_TILE, sigmoid_pseudo_nms_fused, sigmoid_pseudo_nms_plain
 
     gen = torch.Generator().manual_seed(99)
     cases = [(f"3*randn {shape}", 3.0 * torch.randn(*shape, generator=gen))
@@ -594,6 +683,16 @@ def phase_kernels_nms():
     cases = [(name, hm.cuda()) for name, hm in cases]
     # the head's own layout: channel 0 of a (B, H, W, 5) map, read through strides
     cases.append(("strided slice (4, 80, 80)", (3.0 * torch.randn(4, 80, 80, 5, generator=gen)).cuda()[..., 0]))
+    # plateaus across the kernel's tile seams (NMS_TILE): an equal block over a
+    # row seam and a column seam, another on a corner of four tiles, and a peak
+    # on such a corner (tests/test_torch_nms.py holds the tiling to the plain
+    # version on the same map)
+    th, tw = NMS_TILE
+    seams = torch.full((2, 3 * th, 3 * tw), -1.0)
+    seams[0, th - 2 : th + 3, tw - 2 : tw + 3] = 2.0
+    seams[1, th - 1 : th + 1, tw - 1 : tw + 1] = 2.0
+    seams[1, 2 * th, 2 * tw] = 3.0
+    cases.append((f"plateaus across tile seams {tuple(seams.shape)}", seams.cuda()))
     worst = 0.0
     for name, hm in cases:
         got, want = sigmoid_pseudo_nms_fused(hm), sigmoid_pseudo_nms_plain(hm)
@@ -604,6 +703,9 @@ def phase_kernels_nms():
             raise AssertionError(f"[kernels] nms {name}: differs from the plain version, max |err| {err}")
         if "constant" in name and not (got == torch.sigmoid(hm)).all():
             raise AssertionError("[kernels] nms: a plateau lost cells")
+        if "seams" in name and not ((got[0, th - 2 : th + 3, tw - 2 : tw + 3] > 0).all()
+                                    and (got[1, th - 1 : th + 1, tw - 1 : tw + 1] > 0).all() and got[1, 2 * th, 2 * tw] > 0):
+            raise AssertionError("[kernels] nms: a plateau across a tile seam lost cells")
         worst = max(worst, err)
     return worst
 
@@ -1324,8 +1426,16 @@ def times_mbconv(det, block_inputs):
     """The MBConv kernel at each main-path shape (batch 32, 640x640 input)
     beside its bound, its plain version and the port's `InvertedResidual`
     module on the same block (cuDNN convolutions), and their sums over the
-    ten launches of one forward."""
-    from tpucenterface_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+    ten launches of one forward. `ms`: one call on packed weights (as the
+    fast engine calls it) between CUDA events; `unpacked_ms`: one call on the
+    six weights (packed on every call); `device_ms`: calls on packed weights
+    back to back."""
+    from tpucenterface_torch.ops.fused_mbconv import (
+        fused_mbconv,
+        fused_mbconv_plain,
+        pack_fused_mbconv,
+        plan_fused_mbconv,
+    )
 
     shapes = []
     for i, (x, args, skip) in block_inputs.items():
@@ -1339,17 +1449,21 @@ def times_mbconv(det, block_inputs):
                       + 2 * ce + cout)
         products = 2 * pos * ((cin * ce if args[0] is not None else 0) + ce * cout)
         bound_ms, bound_by = bound(nbytes, [(products, BF16_TC_OPS_PER_S), (2 * pos * 9 * ce, F32_OPS_PER_S)])
+        packed = pack_fused_mbconv(*args)
+        plan = plan_fused_mbconv(b, h, w, cin, ce, cout, args[0] is not None)
         with torch.inference_mode():
             shapes.append({
                 "block": i, "blocks_per_forward": MBCONV_BLOCKS_640[i], "x": [b, h, w, cin], "ce": ce, "cout": cout,
-                "skip": bool(skip),
-                "ms": cuda_ms(lambda: fused_mbconv(x, *args, skip=skip), iters=30),
+                "skip": bool(skip), "plan": mbconv_plan_desc(plan),
+                "ms": cuda_ms(lambda: fused_mbconv(x, packed, skip=skip), iters=30),
+                "unpacked_ms": cuda_ms(lambda: fused_mbconv(x, *args, skip=skip), iters=30),
+                "device_ms": back_to_back_ms(lambda: fused_mbconv(x, packed, skip=skip)),
                 "plain_ms": cuda_ms(lambda: fused_mbconv_plain(x, *args, skip=skip), iters=5, warmup=1),
                 "library_ms": cuda_ms(lambda: mod(x_nchw), iters=30),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
     total = {k: sum(sh[k] * sh["blocks_per_forward"] for sh in shapes)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for k in ("ms", "unpacked_ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
     by = {w: sum(sh["bound_ms"] * sh["blocks_per_forward"] for sh in shapes if sh["bound_by"] == w)
           for w in ("bytes", "operations")}
     # the totals are those of one bs32@640 forward (ten launches); the bound is
@@ -1358,7 +1472,9 @@ def times_mbconv(det, block_inputs):
 
 
 def times_nms():
-    """The sigmoid + pseudo-NMS kernel at (32, 160, 160)."""
+    """The sigmoid + pseudo-NMS kernel at (32, 160, 160): one call between
+    CUDA events (`ms`, the wrapper's host time included) and the device time
+    a call (`device_ms`, calls back to back in a CUDA graph)."""
     from tpucenterface_torch.decode.fused_nms import sigmoid_pseudo_nms_fused, sigmoid_pseudo_nms_plain
     from tpucenterface_torch.decode.reference import pseudo_nms
 
@@ -1369,6 +1485,7 @@ def times_nms():
     bound_ms, bound_by = bound(2 * cells * 4, [(cells * 45, F32_OPS_PER_S)])
     return {
         "ms": cuda_ms(lambda: sigmoid_pseudo_nms_fused(hm), iters=50),
+        "device_ms": graph_ms(lambda: sigmoid_pseudo_nms_fused(hm)),
         "plain_ms": cuda_ms(lambda: sigmoid_pseudo_nms_plain(hm), iters=50),
         "library_ms": cuda_ms(lambda: pseudo_nms(torch.sigmoid(hm)), iters=50),
         "bound_ms": bound_ms, "bound_by": bound_by,

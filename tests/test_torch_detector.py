@@ -27,6 +27,7 @@ from tpucenterface.config import PreprocessConfig as JPre
 from tpucenterface.data.synth import render_scene
 from tpucenterface.detector import Detector as JDetector
 from tpucenterface.weights.io import load_safetensors as jax_load
+from tpucenterface_torch.ops.fused_mbconv import unpack_fused_mbconv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "flagship.safetensors")
@@ -250,7 +251,7 @@ def test_reload_weights_rebuilds_the_fast_engine(flagship_vars, scenes):
         assert not np.array_equal(a.scores, b.scores)
         assert (a.scores >= 0.3).sum() > 0
     # the block weights the engine runs are the reloaded ones
-    w2 = det._engine.kernel_args[2][4].float().numpy()
+    w2 = unpack_fused_mbconv(det._engine.packed[2])[4].float().numpy()
     want = det.variables["params"]["backbone"]["block_2"]["project"]["conv"]["kernel"][0, 0]
     np.testing.assert_array_equal(w2, torch.from_numpy(np.asarray(want)).bfloat16().float().numpy())
     det.reload_weights(variables=other)

@@ -6,20 +6,27 @@
 // else 0. One pass: the logits are read once and the masked scores written
 // once; no sigmoid map or shifted maxima reach device memory.
 //
-// Design: one thread per cell, consecutive threads on consecutive columns.
-// A thread reads the up to nine logits of its window (eight of them hits in
-// L1, loaded by its neighbours) and takes the sigmoid of each. The maximum of
-// the nine equals the separable row-then-column maximum of the reference,
-// since a maximum does not round.
+// Bound on an H100 SXM: B*H*W*4 bytes in and as many out, 6.6 MB at
+// (32, 160, 160): 2 us at 3.35 TB/s, against one sigmoid and eight maxima a
+// cell on the float32 pipes. The first version took nine sigmoids a cell
+// (one thread a cell, each reading its whole window from global memory);
+// what holds this one back at the model's maps is the launch and the
+// wrapper's host time.
+//
+// Design: one block of 256 threads a tile of kTileH x kTileW cells of one
+// image. The block reads the tile with its one-cell halo through the given
+// strides (consecutive threads on consecutive columns, so the reads coalesce
+// where the column stride is 1), takes one sigmoid a cell into shared memory
+// (-inf outside the map), then each thread takes the 3x3 maximum of its cells
+// from shared memory and keeps the cell where the maximum equals its own
+// score. The maximum of the nine equals the separable row-then-column maximum
+// of the reference, since a maximum does not round; neighbouring tiles take
+// the sigmoid of a halo cell with the same arithmetic, so their scores agree.
+// decode/fused_nms.py::sigmoid_pseudo_nms_tiled is this tiling in torch.
 //
 // The sigmoid is 1/(1+expf(-x)) with IEEE division and the accurate expf (no
 // --use_fast_math), the expression of decode.cu: the same arithmetic as
 // torch.sigmoid on the GPU, which the exact test max == s relies on.
-//
-// Bound on an H100 SXM: B*H*W*4 bytes in and as many out, 6.6 MB at
-// (32, 160, 160): 2 us at 3.35 TB/s. The nine expf per cell keep this version
-// above that; sharing the sigmoids of a tile through shared memory is later
-// work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -27,6 +34,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTileH = 32;   // decode/fused_nms.py NMS_TILE
+constexpr int kTileW = 32;
+constexpr int kHaloH = kTileH + 2;
+constexpr int kHaloW = kTileW + 2;
+constexpr int kRowsAThread = kTileH * kTileW / kThreads;
+constexpr int kLoads = (kHaloH * kHaloW + kThreads - 1) / kThreads;   // halo cells a thread
 
 __device__ __forceinline__ float sigmoid_exact(float x) {
   return 1.f / (1.f + expf(-x));
@@ -34,21 +47,46 @@ __device__ __forceinline__ float sigmoid_exact(float x) {
 
 __global__ void __launch_bounds__(kThreads)
 nms_kernel(const float* __restrict__ hm, long long sb, long long sy, long long sx,
-           float* __restrict__ out, int H, int W, long long cells) {
-  const long long cell = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (cell >= cells) return;
-  const int x = static_cast<int>(cell % W);
-  const int y = static_cast<int>((cell / W) % H);
-  const long long b = cell / (static_cast<long long>(W) * H);
-  const float* p = hm + b * sb;
-  const float s = sigmoid_exact(p[y * sy + x * sx]);
-  float m = s;
-  for (int yy = max(y - 1, 0); yy <= min(y + 1, H - 1); ++yy) {
-    for (int xx = max(x - 1, 0); xx <= min(x + 1, W - 1); ++xx) {
-      m = fmaxf(m, sigmoid_exact(p[yy * sy + xx * sx]));
-    }
+           float* __restrict__ out, int H, int W) {
+  __shared__ float s[kHaloH][kHaloW];
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  const float* p = hm + static_cast<long long>(blockIdx.z) * sb;
+  // every load of the thread first, then the sigmoids (cell i = hy * kHaloW + hx)
+  float v[kLoads];
+  bool in[kLoads];
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int hy = i / kHaloW;
+    const int gy = y0 - 1 + hy;
+    const int gx = x0 - 1 + (i - hy * kHaloW);
+    in[j] = i < kHaloH * kHaloW && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    v[j] = in[j] ? p[gy * sy + gx * sx] : 0.f;
   }
-  out[cell] = (m == s) ? s : 0.f;
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    if (i < kHaloH * kHaloW) s[i / kHaloW][i % kHaloW] = in[j] ? sigmoid_exact(v[j]) : -INFINITY;
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % kTileW;
+  const int gx = x0 + tx;
+  if (gx >= W) return;
+  float* o = out + static_cast<long long>(blockIdx.z) * H * W;
+#pragma unroll
+  for (int r = 0; r < kRowsAThread; ++r) {
+    const int ty = threadIdx.x / kTileW + r * (kThreads / kTileW);
+    const int gy = y0 + ty;
+    if (gy >= H) break;
+    const float c = s[ty + 1][tx + 1];
+    float m = c;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) m = fmaxf(m, s[ty + dy][tx + dx]);
+    o[static_cast<long long>(gy) * W + gx] = (m == c) ? c : 0.f;
+  }
 }
 
 }  // namespace
@@ -58,10 +96,9 @@ nms_kernel(const float* __restrict__ hm, long long sb, long long sy, long long s
 // wider map needs no copy; out is (B, H, W) contiguous.
 extern "C" int tcf_sigmoid_nms(const float* hm, long long sb, long long sy, long long sx,
                                float* out, int B, int H, int W, void* stream) {
-  const long long cells = static_cast<long long>(B) * H * W;
-  const long long blocks = (cells + kThreads - 1) / kThreads;
-  if (cells < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  nms_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hm, sb, sy, sx, out, H, W, cells);
+  if (B < 1 || H < 1 || W < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  nms_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(hm, sb, sy, sx, out, H, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,14 +17,14 @@ out.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List
 
 import torch
 
 from tpucenterface_torch.config import ModelConfig, resolve_device
 from tpucenterface_torch.model.backbone import _is_skip, backbone_plan
 from tpucenterface_torch.model.centernet import load_network
-from tpucenterface_torch.ops.fused_mbconv import MAX_CIN, fused_mbconv
+from tpucenterface_torch.ops.fused_mbconv import MAX_CIN, PackedMBConv, fused_mbconv, pack_fused_mbconv
 from tpucenterface_torch.weights.convert import mbconv_args_from_block
 
 
@@ -65,17 +65,15 @@ class FastEngine:
         self.device = resolve_device(device)
         self.net = load_network(folded_variables, cfg, self.device)
         self.plan = backbone_plan(cfg)
-        # the kernel's six arguments of every stride-1 block, in bfloat16 on
-        # the device (the kernel rounds them to bfloat16 in any case)
+        # the weights of every stride-1 block, packed once on the device in
+        # the kernel's layout (bfloat16, as the kernel computes with them)
         blocks = folded_variables["params"]["backbone"]
-        self.kernel_args: Dict[int, Tuple[Optional[torch.Tensor], ...]] = {}
+        self.packed: Dict[int, PackedMBConv] = {}
         if use_mbconv_kernel:
             for i, (_, _, s, _) in enumerate(self.plan):
                 if s == 1:
-                    self.kernel_args[i] = tuple(
-                        None if a is None else torch.from_numpy(a).to(self.device, torch.bfloat16)
-                        for a in mbconv_args_from_block(blocks[f"block_{i}"])
-                    )
+                    args = (None if a is None else torch.from_numpy(a) for a in mbconv_args_from_block(blocks[f"block_{i}"]))
+                    self.packed[i] = pack_fused_mbconv(*args, device=self.device)
 
     def kernel_blocks(self, input_h: int) -> List[int]:
         """The blocks that take the fused kernel at an input `input_h` high."""
@@ -94,7 +92,7 @@ class FastEngine:
                 # NCHW in channels_last is the kernel's NHWC, viewed
                 out = fused_mbconv(
                     y.permute(0, 2, 3, 1).contiguous(),
-                    *self.kernel_args[i],
+                    self.packed[i],
                     skip=block.use_skip,
                     relu6=self.cfg.relu6,
                 )
