@@ -45,6 +45,16 @@ Phases, in order; any failure raises and the script exits non-zero:
       against the bf16 module forward on the same card (the float32 forward
       as arbiter), and at 320 against the port's CPU run under the same
       scales; the B7 route against the library route as well;
+   f. the eval entry point: the flip program (`Detector._batch_flip_fn`,
+      one forward of the batch and its mirror) on the flagship weights at
+      bs64 @ 640, module forward and fast engine, against the batch program
+      on the batch and on its host-made mirror; flip + multi-scale TTA
+      (`eval.batch_runner.batched_detect_tta`, scales 0.7 and 1.0) on
+      EVAL_TTA_IMAGES painted scenes of mixed sizes, scored with the WIDER
+      protocol (`eval.synth_eval.score_detections`) against the port's CPU
+      run of the same set (AP within 0.005, the same launch plan), with its
+      images/s; the landmark model's flip program at bs4 @ 320 (the fused
+      sigmoid + pseudo-NMS kernel, points un-mirrored and pair-swapped);
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -243,6 +253,8 @@ QUANT_MATCH_SHARE, QUANT_F32_HM_RATIO = 0.85, 8.0
 # detections as the library route (plus FAST_F32_SLACK), and its heat map may
 # lie at most B7_F32_HM_RATIO times as far from the float32 one.
 B7_MATCH_SHARE, B7_F32_SLACK, B7_F32_HM_RATIO = 0.9, 1.25, 1.1
+# images of the eval phase's TTA set (card against the port's CPU run)
+EVAL_TTA_IMAGES = 32
 
 
 def log(msg: str) -> None:
@@ -1031,13 +1043,14 @@ def phase_kernels_int8(inputs):
     return {"int8_conv1x1": 0.0, "int8_block_s2": 0.0, "int8_block_s1": 0.0}
 
 
-def count_unmatched(a_dets, b_dets):
-    """(detections of either side scoring >= BF16_FIRM, those of them with no
-    partner on the other side within BF16_BOX_ATOL px and BF16_SCORE_ATOL)."""
+def count_unmatched(a_dets, b_dets, firm=BF16_FIRM):
+    """(detections of either side scoring >= `firm`, those of them with no
+    partner on the other side within BF16_BOX_ATOL px, box corners and
+    landmark points where both sides have them, and BF16_SCORE_ATOL)."""
     n = bad = 0
     for x, y in zip(a_dets, b_dets):
         for a, b in ((x, y), (y, x)):
-            sel = a.scores >= BF16_FIRM
+            sel = a.scores >= firm
             n += int(sel.sum())
             if not sel.any():
                 continue
@@ -1045,6 +1058,8 @@ def count_unmatched(a_dets, b_dets):
                 bad += int(sel.sum())
                 continue
             dist = np.abs(a.boxes[sel][:, None, :] - b.boxes[None, :, :]).max(axis=-1)
+            if a.landmarks is not None and b.landmarks is not None:
+                dist = np.maximum(dist, np.abs(a.landmarks[sel][:, None] - b.landmarks[None]).max(axis=(-2, -1)))
             close = np.abs(a.scores[sel][:, None] - b.scores[None, :]) <= BF16_SCORE_ATOL
             bad += int((~((dist <= BF16_BOX_ATOL) & close).any(axis=1)).sum())
     return n, bad
@@ -1353,6 +1368,154 @@ def phase_main_quant(dets, det_module, det_f32, d640_module, x, module_feats):
         failures.append("B7 route: heat map further from the float32 one than the library route's")
     if failures:  # every comparison is logged before any fails the run
         raise AssertionError("[main] quantized path: " + "; ".join(failures))
+    return launches
+
+
+def mixed_painted_set(seed, n):
+    """`n` painted scenes of mixed sizes, each side 384-512, and records of
+    their faces for the WIDER scorer (xywh boxes, none invalid)."""
+    from tpucenterface_torch.data.wider import WiderImage
+
+    rng = np.random.RandomState(seed)
+    imgs, recs = [], []
+    for i in range(n):
+        img, g = paint_scene(rng, tuple(rng.randint(384, 513, 2)), int(rng.randint(2, 6)))
+        imgs.append(img)
+        xywh = np.concatenate([g[:, :2], g[:, 2:] - g[:, :2]], axis=1)
+        recs.append(WiderImage("", f"painted/{i}", xywh, np.zeros(len(g), bool)))
+    return imgs, recs
+
+
+def _flip_halves(det, imgs):
+    """The flip program of `det` on pre-sized images (the letterbox is the
+    identity, so mirroring the square mirrors the image), and the batch
+    program on the images and on their mirrors: (the flip's first halves,
+    the batch program's, the flip's second halves, the batch program's on
+    the mirrors, un-mirrored and with the landmark pairs swapped), lists of
+    Detections of every score."""
+    from tpucenterface_torch import Detections
+
+    b, h, w, _ = imgs.shape
+    dev = det.device
+    hws = torch.tensor([[h, w]] * b, dtype=torch.int32, device=dev)
+    flip = det._batch_flip_fn(b, (h, w), w)(torch.from_numpy(imgs).to(dev), hws)
+    plain = det._batch_fn(b, (h, w), w)(torch.from_numpy(imgs).to(dev), hws)
+    mir = det._batch_fn(b, (h, w), w)(torch.from_numpy(np.ascontiguousarray(imgs[:, :, ::-1])).to(dev), hws)
+    flip = [x.cpu().numpy() for x in flip]
+    k = flip[1].shape[1] // 2
+    plain = [x.cpu().numpy() for x in plain]
+    mir = [x.cpu().numpy() for x in mir]
+    edge = w - 1.0
+    boxes = np.stack([edge - mir[0][..., 2], mir[0][..., 1], edge - mir[0][..., 0], mir[0][..., 3]], axis=-1)
+    boxes = np.minimum(np.maximum(boxes, 0.0), np.array([w, h, w, h], np.float32))
+    lms = None
+    if len(mir) == 3:
+        lms = mir[2].copy()
+        lms[..., 0] = edge - lms[..., 0]
+        lms = np.minimum(np.maximum(lms[:, :, list(det.config.decode.lm_flip_perm)], 0.0), np.float32([w, h]))
+
+    def dets(arrs, i, part):
+        return Detections(*(a[i, part] for a in arrs))
+
+    first = [dets(flip, i, slice(0, k)) for i in range(b)]
+    second = [dets(flip, i, slice(k, 2 * k)) for i in range(b)]
+    plain = [dets(plain, i, slice(None)) for i in range(b)]
+    mirrored = [Detections(boxes[i], mir[1][i], None if lms is None else lms[i]) for i in range(b)]
+    return first, plain, second, mirrored
+
+
+def phase_eval(det, det_fast, det_cpu, smi):
+    """Path f, the eval entry point, with every launch counter set to 0 just
+    before and read just after:
+    - the flip program (`Detector._batch_flip_fn`, one forward of 2B images)
+      on the flagship weights at bs64 @ 640 (a 128-image forward), module
+      forward and fast engine, K = 200: its first half against the batch
+      program on the same batch, its second half against the batch program
+      on the host-mirrored batch, un-mirrored, each matched as the fast
+      engine is matched against the module forward (FAST_MATCH_SHARE);
+    - `eval.batch_runner.batched_detect_tta` (flip at scales 0.7 and 1.0) on
+      a set of mixed-size painted scenes, scored by `eval.synth_eval.
+      score_detections` against the painted faces, against the same set
+      through the port's CPU Detector: AP within 0.005 on each split, the
+      same launch plan;
+    - a landmark model (random weights from a seed) through one flip
+      program at bs4 @ 320: the fused dense stage launched, the points
+      finite, inside the image, and matched, un-mirrored and pair-swapped,
+      to the batch program's on the mirrored images.
+    Returns the launch counts."""
+    from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig, ModelConfig
+    from tpucenterface_torch.eval.batch_runner import batched_detect_tta
+    from tpucenterface_torch.eval.synth_eval import score_detections
+
+    b64, _ = paint_batch(41, 64, (640, 640))
+    tta_imgs, tta_recs = mixed_painted_set(42, EVAL_TTA_IMAGES)
+    model = ModelConfig(with_landmarks=True)
+    lm_det = Detector(config=DetectorConfig(model=model, decode=DecodeConfig(use_pallas=True), default_size=320),
+                      seed=11)
+    lm_imgs, _ = paint_batch(43, 4, (320, 320))
+
+    zero_launches()
+    halves = {name: _flip_halves(d, b64) for name, d in (("module", det), ("fast", det_fast))}
+    after_flip = read_launches()
+    logs = ([], [])
+    tta = dict(scales=(0.7, 1.0), flip=True, score_thresh=0.02)
+    batched_detect_tta(det, tta_imgs, launch_log=logs[0], **tta)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = batched_detect_tta(det, tta_imgs, launch_log=logs[1], **tta)
+    tta_s = time.perf_counter() - t0
+    lm_halves = _flip_halves(lm_det, lm_imgs)
+    launches = read_launches()
+
+    at640 = len(det_fast._engine.kernel_blocks(640))
+    want_flip = launch_counts(decode_feats_fused=6, fused_mbconv=3 * at640)
+    want = launch_counts(decode_feats_fused=6 + len(logs[0]) + len(logs[1]), fused_mbconv=3 * at640,
+                         sigmoid_pseudo_nms_fused=3)
+    log(f"[eval] launches: flip and batch programs bs64@640 (module, fast) {after_flip}; with "
+        f"batched_detect_tta x2 ({len(logs[1])} launches each) and the landmark flip bs4@320 {launches} on {smi}")
+    if after_flip != want_flip or launches != want or logs[0] != logs[1]:
+        raise AssertionError(f"[eval] launches {after_flip}, {launches}; wanted {want_flip}, {want}")
+    for name, (first, plain, second, mirrored) in halves.items():
+        n1, bad1 = count_unmatched(first, plain)
+        n2, bad2 = count_unmatched(second, mirrored)
+        log(f"[eval] flip program bs64@640 ({name}), detections >= {BF16_FIRM} without a partner within "
+            f"{BF16_BOX_ATOL} px and {BF16_SCORE_ATOL}: first half / batch program {bad1} of {n1}, second half / "
+            f"batch program on the mirrored batch {bad2} of {n2} on {smi}")
+        for n, bad in ((n1, bad1), (n2, bad2)):
+            if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+                raise AssertionError(f"[eval] flip program ({name}): {bad} of {n} detections unmatched")
+
+    cpu_log = []
+    cpu = batched_detect_tta(det_cpu, tta_imgs, launch_log=cpu_log, **tta)
+    ap = {}
+    for where, dets in (("card", card), ("cpu", cpu)):
+        ap[where] = score_detections([np.concatenate([d.boxes, d.scores[:, None]], 1) for d in dets], tta_recs)
+    log(f"[eval] batched_detect_tta scales (0.7, 1.0) + flip on {len(tta_imgs)} painted scenes (sides 384-512): "
+        f"{len(logs[1])} launches {sorted(set(logs[1]))}; AP card {json.dumps(ap['card'])}, "
+        f"CPU {json.dumps(ap['cpu'])} on {smi}")
+    log(f"[eval] batched_detect_tta: {len(tta_imgs) / tta_s:.2f} images/s ({tta_s * 1e3:.1f} ms for "
+        f"{len(tta_imgs)} images, module forward, after one warm-up run) on {smi}")
+    if cpu_log != logs[1]:
+        raise AssertionError(f"[eval] launch plans differ: card {logs[1]}, CPU {cpu_log}")
+    for split in ap["cpu"]:
+        if not abs(ap["card"][split] - ap["cpu"][split]) <= 0.005:
+            raise AssertionError(f"[eval] AP on {split}: card {ap['card'][split]}, CPU {ap['cpu'][split]}")
+    if min(ap["card"].values()) < 0.9:
+        raise AssertionError(f"[eval] the painted faces are not found: AP {ap['card']}")
+    prof = device_profile(lambda: batched_detect_tta(det, tta_imgs, **tta), iters=3)
+    log(f"[eval] profile of batched_detect_tta on the {len(tta_imgs)} scenes: {json.dumps(prof)} on {smi}")
+
+    first, _, second, mirrored = lm_halves
+    for d in first + second:
+        if d.landmarks is None or d.landmarks.shape != (len(d.scores), 5, 2) or not np.isfinite(d.landmarks).all():
+            raise AssertionError("[eval] landmark flip program: bad or non-finite landmarks")
+        if (d.landmarks < 0).any() or (d.landmarks > 320).any():
+            raise AssertionError("[eval] landmark flip program: points outside the 320x320 image")
+    n, bad = count_unmatched(second, mirrored, firm=0.0)
+    log(f"[eval] landmark flip program bs4@320: mirror half's detections (boxes and points) without a partner in "
+        f"the batch program's on the mirrored images, un-mirrored and pair-swapped: {bad} of {n} on {smi}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[eval] landmark flip program: {bad} of {n} detections unmatched")
     return launches
 
 
@@ -1811,7 +1974,8 @@ def main() -> int:
     paths = [module_launches, phase_main_fast(det_fast, det_fast320, det_f32, d640, x, det_feats),
              phase_main_landmarks(),
              phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640, x, det_feats),
-             phase_main_quant(quant_dets, det, det_f32, d640, x, det_feats)]
+             phase_main_quant(quant_dets, det, det_f32, d640, x, det_feats),
+             phase_eval(det, det_fast, det_cpu, smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

@@ -123,7 +123,7 @@ def _check_all(b, h, w, k):
 
 
 @pytest.mark.parametrize("k", [1, 100, 200, 1000])
-@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("b", [1, 32, 128])  # 128: the flip program of a TTA batch of 64
 @pytest.mark.parametrize("size", DEFAULT_BUCKETS)
 def test_plan_covers_every_bucket(size, b, k):
     hw = size // DecodeConfig().stride

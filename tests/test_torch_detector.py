@@ -61,14 +61,18 @@ def _configs(dtype):
 
 def match_detections(port, ref, box_atol, score_atol, firm):
     """Every detection of either side scoring >= `firm` finds one on the
-    other side whose box corners are all within `box_atol` pixels and whose
-    score is within `score_atol`."""
+    other side whose box corners (and landmark points, where both sides
+    have them) are all within `box_atol` pixels and whose score is within
+    `score_atol`."""
     for a, b in ((port, ref), (ref, port)):
         sel = a.scores >= firm
         if not sel.any():
             continue
         assert len(b.scores), f"no detections to match {a.scores[sel]}"
         dist = np.abs(a.boxes[sel][:, None, :] - b.boxes[None, :, :]).max(axis=-1)
+        if a.landmarks is not None and b.landmarks is not None:
+            lm = np.abs(a.landmarks[sel][:, None] - b.landmarks[None]).max(axis=(-2, -1))
+            dist = np.maximum(dist, lm)
         close = np.abs(a.scores[sel][:, None] - b.scores[None, :]) <= score_atol
         ok = ((dist <= box_atol) & close).any(axis=1)
         assert ok.all(), f"unmatched {a.boxes[sel][~ok]} scores {a.scores[sel][~ok]}"
@@ -90,7 +94,10 @@ def test_import_leaves_jax_out():
         "import tpucenterface_torch.ops.fused_mbconv, tpucenterface_torch.model.fast_forward, "
         "tpucenterface_torch.decode.fused_nms, tpucenterface_torch.kernels.build, "
         "tpucenterface_torch.ops.planar_mbconv, tpucenterface_torch.model.planar_engine, "
-        "tpucenterface_torch.kernels.sweep_b4b, tpucenterface_torch.kernels.sweep_b2; "
+        "tpucenterface_torch.kernels.sweep_b4b, tpucenterface_torch.kernels.sweep_b2, "
+        "tpucenterface_torch.decode, tpucenterface_torch.data.wider, tpucenterface_torch.eval.wider_eval, "
+        "tpucenterface_torch.eval.tta, tpucenterface_torch.eval.batch_runner, "
+        "tpucenterface_torch.eval.synth_eval; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -279,3 +286,256 @@ def test_flagship_ap_matches_jax(flagship_vars, tmp_path):
     ap_ref = ap_on_records(ref, recs, size=SIZE)
     for split in ap_ref:
         assert abs(ap_port[split] - ap_ref[split]) <= 0.005, (split, ap_port, ap_ref)
+
+
+# --------------------------------------------------------------------------- #
+# the programs: `_decode(max_dets=)`, `_single_fn`, `_batch_fn`,
+# `_batch_flip_fn` and `results_to_detections(lo=, hi=)` against the JAX
+# Detector's, at a 128 input (flagship weights; a landmark model on random
+# weights); bounds as above: float32 all K within 1e-5 and 1e-3 px, bfloat16
+# the detections >= 0.1 matched within 2 px and 0.03
+# --------------------------------------------------------------------------- #
+
+PSIZE = 128
+
+
+@pytest.fixture(scope="module")
+def program_pairs(flagship_vars):
+    """{dtype: (port Detector, JAX Detector)} at the 128 input."""
+    import dataclasses
+
+    pairs = {}
+    for dtype in ("float32", "bfloat16"):
+        port_cfg, jax_cfg = _configs(dtype)
+        port_cfg = dataclasses.replace(port_cfg, default_size=PSIZE)
+        jax_cfg = dataclasses.replace(jax_cfg, default_size=PSIZE)
+        pairs[dtype] = (
+            T.Detector.from_safetensors(ARTIFACT, port_cfg, device="cpu"),
+            JDetector(variables=flagship_vars, config=jax_cfg),
+        )
+    return pairs
+
+
+@pytest.fixture(scope="module")
+def program_batch():
+    """Three scenes on one (128, 128) canvas, two of them letterboxed from odd
+    content sizes."""
+    imgs = _scenes(3, seed=21, hw=(PSIZE, PSIZE))
+    hws = np.array([[PSIZE, PSIZE], [101, PSIZE], [PSIZE, 77]], np.int32)
+    for img, (h, w) in zip(imgs, hws):
+        img[h:], img[:, w:] = 0, 0
+    return imgs, hws
+
+
+def _as_dets(res, i=None):
+    """Detections of one image of a program result (numpy or tensors)."""
+    arrs = [np.asarray(r.numpy() if isinstance(r, torch.Tensor) else r) for r in res]
+    if i is not None:
+        arrs = [a[i] for a in arrs]
+    return T.Detections(*arrs) if len(arrs) == 3 else T.Detections(arrs[0], arrs[1])
+
+
+def _compare(dtype, a, b):
+    if dtype == "float32":
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-5)
+        np.testing.assert_allclose(a.boxes, b.boxes, atol=1e-3)
+        if a.landmarks is not None:
+            np.testing.assert_allclose(a.landmarks, b.landmarks, atol=1e-3)
+    else:
+        match_detections(a, b, box_atol=2.0, score_atol=0.03, firm=0.1)
+
+
+def _run_port(fn, imgs, hws):
+    return fn(torch.from_numpy(np.ascontiguousarray(imgs)), torch.from_numpy(hws))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_single_fn_matches_jax(program_pairs, program_batch, dtype):
+    """The one-image program on a letterboxed odd size and, pre-sized, on
+    the identity path: unbatched (K, 4), (K,) results."""
+    port, ref = program_pairs[dtype]
+    imgs, hws = program_batch
+    for img, hw, identity in ((imgs[1], hws[1], False), (imgs[0], hws[0], True)):
+        assert port._identity_for((PSIZE, PSIZE), PSIZE, hw[None]) == identity
+        got = _run_port(port._single_fn((PSIZE, PSIZE), PSIZE, identity=identity), img, hw)
+        want = ref._single_fn((PSIZE, PSIZE), PSIZE, identity=identity)(img, hw)
+        assert len(got) == 2 and tuple(got[0].shape) == (200, 4) and tuple(got[1].shape) == (200,)
+        a, b = _as_dets(got), _as_dets(want)
+        assert (a.scores >= 0.1).sum() > 0
+        _compare(dtype, a, b)
+
+
+@pytest.mark.parametrize("dtype,max_dets", [("float32", None), ("float32", 5000), ("bfloat16", 37)])
+def test_batch_fn_max_dets_matches_jax(program_pairs, program_batch, dtype, max_dets):
+    """The batch program with a per-call K: min(max_dets, H*W) rows (the
+    32x32 map holds 1024 cells), as the JAX program gives them."""
+    port, ref = program_pairs[dtype]
+    imgs, hws = program_batch
+    got = _run_port(port._batch_fn(3, (PSIZE, PSIZE), PSIZE, max_dets=max_dets), imgs, hws)
+    want = ref._batch_fn(3, (PSIZE, PSIZE), PSIZE, max_dets=max_dets)(imgs, hws)
+    k = min(max_dets or 200, (PSIZE // 4) ** 2)
+    assert tuple(got[1].shape) == np.asarray(want[1]).shape == (3, k)
+    for i in range(3):
+        _compare(dtype, _as_dets(got, i), _as_dets(want, i))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_flip_fn_matches_jax(program_pairs, program_batch, dtype):
+    """The flip program: (B, 2K) rows, the image's K then its mirror's K
+    un-mirrored, against the JAX program; the first half is the batch
+    program's result and the second half the batch program's on the
+    host-mirrored square, un-mirrored (pre-sized images: the letterbox is
+    the identity, so mirroring the square is mirroring the image)."""
+    port, ref = program_pairs[dtype]
+    imgs, hws = program_batch
+    got = _run_port(port._batch_flip_fn(3, (PSIZE, PSIZE), PSIZE), imgs, hws)
+    want = ref._batch_flip_fn(3, (PSIZE, PSIZE), PSIZE)(imgs, hws)
+    assert tuple(got[0].shape) == np.asarray(want[0]).shape == (3, 400, 4)
+    for i in range(3):
+        _compare(dtype, _as_dets(got, i), _as_dets(want, i))
+    plain = _run_port(port._batch_fn(3, (PSIZE, PSIZE), PSIZE), imgs, hws)
+    assert torch.equal(got[0][:, :200], plain[0]) and torch.equal(got[1][:, :200], plain[1])
+    flipped = T.Detections(got[0][0, 200:].numpy(), got[1][0, 200:].numpy())
+    _compare_mirror_half(dtype, flipped, port, imgs[:1], hws[:1])
+
+
+def _compare_mirror_half(dtype, flipped, port, img, hw):
+    """The mirror half of a flip program's row against the batch program on
+    the host-mirrored pre-sized image, un-mirrored. The batch program clips
+    its boxes and points to the image before the host un-mirrors them, where
+    the flip program un-mirrors first, so a box or point past the border
+    lands up to 1 px apart; in float32 the bound is that pixel and 1e-5 in
+    score (the two forwards run at other batch sizes, so near-tied scores
+    may also swap their order), in bfloat16 the bound of the tests above."""
+    mirrored = _run_port(port._batch_fn(1, (PSIZE, PSIZE), PSIZE), np.ascontiguousarray(img[:, :, ::-1]), hw)
+    edge = PSIZE - 1.0
+    boxes = torch.stack([edge - mirrored[0][0][:, 2], mirrored[0][0][:, 1],
+                         edge - mirrored[0][0][:, 0], mirrored[0][0][:, 3]], dim=-1).clamp(0, PSIZE)
+    lm = None
+    if len(mirrored) == 3:
+        lm = mirrored[2][0].clone()
+        lm[..., 0] = edge - lm[..., 0]
+        lm = lm[:, list(port.config.decode.lm_flip_perm)].clamp(0, PSIZE).numpy()
+    want = T.Detections(boxes.numpy(), mirrored[1][0].numpy(), lm)
+    if dtype == "float32":
+        match_detections(flipped, want, box_atol=1.0 + 1e-3, score_atol=1e-5, firm=0.0)
+    else:
+        match_detections(flipped, want, box_atol=2.0, score_atol=0.03, firm=0.1)
+
+
+def test_landmark_flip_fn_matches_jax():
+    """A landmark model (random weights from a seed, float32): the flip
+    program carries the points, un-mirrored and pair-swapped by
+    `lm_flip_perm`, as the JAX program does; the fused dense stage is on."""
+    model = T.ModelConfig(with_landmarks=True, compute_dtype="float32")
+    _, variables = T.model.centernet.init_model(model, seed=11)
+    port = T.Detector(
+        variables=variables,
+        config=T.DetectorConfig(model=model, decode=T.DecodeConfig(use_pallas=True),
+                                preprocess=T.PreprocessConfig(resize_dtype="float32"), default_size=PSIZE),
+        device="cpu",
+    )
+    ref = JDetector(
+        variables=variables,
+        config=JDetectorConfig(model=JModel(with_landmarks=True, compute_dtype="float32"),
+                               decode=JDecode(fast_topk=False), preprocess=JPre(resize_dtype="float32"),
+                               default_size=PSIZE),
+    )
+    imgs = _scenes(2, seed=23, hw=(PSIZE, PSIZE))
+    hws = np.array([[PSIZE, PSIZE], [PSIZE, 93]], np.int32)
+    got = _run_port(port._batch_flip_fn(2, (PSIZE, PSIZE), PSIZE), imgs, hws)
+    want = ref._batch_flip_fn(2, (PSIZE, PSIZE), PSIZE)(imgs, hws)
+    assert len(got) == 3 and tuple(got[2].shape) == (2, 400, 5, 2)
+    for i in range(2):
+        _compare("float32", _as_dets(got, i), _as_dets(want, i))
+    # the mirror half's points: mirrored x, left/right pairs swapped
+    flipped = T.Detections(got[0][0, 200:].numpy(), got[1][0, 200:].numpy(), got[2][0, 200:].numpy())
+    _compare_mirror_half("float32", flipped, port, imgs[:1], hws[:1])
+
+
+@pytest.fixture(scope="module")
+def jax_plain(program_pairs):
+    """A JAX Detector (reference top-K) for the methods that read only its
+    config."""
+    return program_pairs["float32"][1]
+
+
+@pytest.mark.parametrize("max_dets", [None, 1, 249])
+def test_decode_max_dets_matches_jax(jax_plain, max_dets):
+    """`_decode(feats, max_dets=)` on every route of the port (the fused
+    decode's plain version, the reference, the landmark route) against the
+    JAX `_decode`: K = min(max_dets, H*W), the same indices."""
+    rng = np.random.RandomState(4)
+    h, w = 12, 20
+    feats = {
+        "hm": rng.randn(2, h, w, 1).astype(np.float32) * 3,
+        "wh": rng.randn(2, h, w, 2).astype(np.float32),
+        "off": rng.rand(2, h, w, 2).astype(np.float32),
+        "lm": rng.randn(2, h, w, 10).astype(np.float32),
+    }
+    ports = [T.Detector(config=T.DetectorConfig(decode=T.DecodeConfig(use_pallas=flag)), device="cpu")
+             for flag in (True, False)]
+    for landmarks in (False, True):
+        f = {k: v for k, v in feats.items() if landmarks or k != "lm"}
+        want = jax_plain._decode(f, max_dets=max_dets)
+        for port in ports:
+            got = port._decode({k: torch.from_numpy(v) for k, v in f.items()}, max_dets=max_dets)
+            assert tuple(got[1].shape) == (2, min(max_dets or 200, h * w))
+            np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-6)
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
+            assert (got[2] is None) == (not landmarks)
+            if landmarks:
+                np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-4)
+
+
+def test_results_to_detections_lo_hi(jax_plain):
+    """`results_to_detections(res, thresh, lo, hi)` splits images lo..hi-1,
+    as the JAX method does on the same arrays."""
+    rng = np.random.RandomState(2)
+    res = (rng.rand(5, 7, 4).astype(np.float32) * 50, rng.rand(5, 7).astype(np.float32),
+           rng.rand(5, 7, 5, 2).astype(np.float32))
+    port = T.Detector(device="cpu")
+    ref = jax_plain
+    for n in (2, 3):
+        for lo, hi in ((0, None), (1, 4), (2, 2), (0, 5)):
+            got = port.results_to_detections(tuple(torch.from_numpy(r) for r in res[:n]), 0.4, lo=lo, hi=hi)
+            want = ref.results_to_detections(res[:n], 0.4, lo=lo, hi=hi)
+            assert len(got) == len(want) == (5 if hi is None else hi) - lo
+            for a, b in zip(got, want):
+                for x, y in zip(a, b):
+                    assert (x is None and y is None) or np.array_equal(x, y)
+
+
+def test_programs_refuse_what_they_cannot_run():
+    det = T.Detector(config=T.DetectorConfig(default_size=PSIZE), device="cpu")
+    with pytest.raises(NotImplementedError, match="int8-input"):
+        det._batch_fn(2, (PSIZE, PSIZE), PSIZE, identity=True, int8_in=True)
+    fn = det._batch_fn(2, (PSIZE, PSIZE), PSIZE)
+    hws = torch.full((2, 2), PSIZE, dtype=torch.int32)
+    with pytest.raises(ValueError, match="uint8 images"):
+        fn(torch.zeros((3, PSIZE, PSIZE, 3), dtype=torch.uint8), hws)
+    with pytest.raises(ValueError, match="uint8 images"):
+        fn(torch.zeros((2, PSIZE, PSIZE, 3)), hws)
+    with pytest.raises(ValueError, match="sizes"):
+        fn(torch.zeros((2, PSIZE, PSIZE, 3), dtype=torch.uint8), hws[:1])
+    with pytest.raises(ValueError, match="uint8 images"):
+        det._single_fn((PSIZE, PSIZE), PSIZE)(torch.zeros((PSIZE, 2 * PSIZE, 3), dtype=torch.uint8), hws[0])
+    uncentered = T.Detector(config=T.DetectorConfig(preprocess=T.PreprocessConfig(center=False)), device="cpu")
+    with pytest.raises(ValueError, match="centered letterbox"):
+        uncentered._batch_flip_fn(2, (PSIZE, PSIZE), PSIZE)
+
+
+def test_decode_feats_is_exported_as_in_jax():
+    """`tpucenterface_torch.decode.decode_feats` / `boxes_to_original`, the
+    names `tpucenterface.decode` exports, on the same head maps."""
+    from tpucenterface.decode import decode_feats as jdecode_feats
+    from tpucenterface_torch.decode import boxes_to_original, decode_feats
+
+    rng = np.random.RandomState(8)
+    feats = {"hm": rng.randn(2, 10, 14, 1).astype(np.float32) * 3, "wh": rng.randn(2, 10, 14, 2).astype(np.float32),
+             "off": rng.rand(2, 10, 14, 2).astype(np.float32)}
+    got = decode_feats({k: torch.from_numpy(v) for k, v in feats.items()}, T.DecodeConfig(max_dets=30))
+    want = jdecode_feats(feats, JDecode(max_dets=30, fast_topk=False))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-6)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
+    assert callable(boxes_to_original)

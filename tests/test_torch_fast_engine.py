@@ -186,3 +186,75 @@ def test_engine_rejects_what_it_cannot_run(unfolded):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FastEngine(folded, ModelConfig(folded=True))
+
+
+LARGE_KERNEL_BLOCKS = {320: [0, 2, 4, 5], 1024: [0, 2, 4, 5, 7, 8, 9, 10, 11, 12]}
+
+
+def _large_detectors(variables):
+    """The `large` preset's (fast, module) Detectors on the CPU, the input
+    normalize not baked into the stem (so that the JAX engine, which takes
+    normalized input, sees the same x)."""
+    import dataclasses
+
+    import tpucenterface_torch as T
+
+    cfg = dataclasses.replace(T.preset("large"), preprocess=T.PreprocessConfig(stem_bake=False))
+    fast = T.Detector(variables=variables, config=dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, inference_engine="fast")), device="cpu")
+    return fast, T.Detector(variables=variables, config=cfg, device="cpu")
+
+
+def _large_maps(det, size):
+    x = (np.random.RandomState(1).rand(1, size, size, 3) * 2 - 1).astype(np.float32)
+    with torch.inference_mode():
+        return x, {k: t.numpy() for k, t in det._forward(torch.from_numpy(x)).items()}
+
+
+@pytest.mark.parametrize("size", [320, 1024])
+def test_large_preset_fast_detector(size):
+    """The `large` preset (width 1.4) on the fast engine: the Detector
+    builds (blocks 14-16 have Cin 224, past the kernel's MAX_CIN, so they
+    are neither packed nor run by the kernel and stay on the modules; at
+    1024 their map is 32x32, where the map rule alone would take them), and
+    its forward matches its module forward under this file's bound, on
+    random weights. `test_large_preset_matches_jax_fast_engine` (slow) holds
+    it to the JAX FastEngine too."""
+    import tpucenterface_torch as T
+
+    _, variables = T.model.centernet.init_model(T.preset("large").model, seed=3)
+    fast, module = _large_detectors(variables)
+    assert sorted(fast._engine.packed) == LARGE_KERNEL_BLOCKS[1024]
+    assert fast._engine.kernel_blocks(size) == LARGE_KERNEL_BLOCKS[size]
+    _, got = _large_maps(fast, size)
+    _, ref = _large_maps(module, size)
+    for k in ("hm", "wh", "off"):
+        assert got[k].shape == (1, size // 4, size // 4, got[k].shape[-1])
+        np.testing.assert_allclose(got[k], ref[k], atol=ATOL, rtol=RTOL, err_msg=k)
+    assert any((got[k] != ref[k]).any() for k in ("hm", "wh", "off"))  # the kernel blocks did run
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("size", [320, 1024])
+def test_large_preset_matches_jax_fast_engine(size):
+    """The `large` preset's fast Detector against its module forward and the
+    JAX FastEngine (Pallas kernel in interpret mode, on every stride-1 block
+    with an even map of at least 24 rows, blocks 14-16 included) under this
+    file's bound, on random weights (~25-75 s a size, most of it the
+    interpret-mode kernel)."""
+    import dataclasses
+
+    from tpucenterface.config import preset as jpreset
+
+    jcfg = jpreset("large").model
+    _, v = jinit(jcfg, rng=jax.random.PRNGKey(3), input_size=SIZE)
+    v = _randomize_bn(v, seed=3)
+    fast, module = _large_detectors(v)
+    x, got = _large_maps(fast, size)
+    _, ref = _large_maps(module, size)
+    jeng = JFastEngine(jfold(v), dataclasses.replace(jcfg, folded=True), use_mbconv_kernel=True,
+                       kernel_interpret=True)
+    jref = jeng(x)
+    for k in ("hm", "wh", "off"):
+        np.testing.assert_allclose(got[k], ref[k], atol=ATOL, rtol=RTOL, err_msg=k)
+        np.testing.assert_allclose(got[k], np.asarray(jref[k]), atol=ATOL, rtol=RTOL, err_msg=k)

@@ -72,8 +72,8 @@ def _covers(plan: fm.MBConvPlan, b, h, w, cin, ce, cout, expand):
     assert lay.nchunks * plan.ck >= ce and lay.cin_pad >= cin
 
 
-@pytest.mark.parametrize("batch", [1, 32])
-@pytest.mark.parametrize("input_h", [640, 320, 800, 1024])
+@pytest.mark.parametrize("batch", [1, 32, 128])  # 128: the flip program of a TTA batch of 64
+@pytest.mark.parametrize("input_h", [640, 320, 800, 1024, 416, 512])
 def test_plan_covers_every_engine_block(input_h, batch):
     shapes = _engine_shapes(input_h)
     assert len(shapes) == len(ff.kernel_blocks(ModelConfig(folded=True), input_h)) >= 4

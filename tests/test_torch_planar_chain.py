@@ -89,7 +89,8 @@ def _engine_chains(size):
     return out
 
 
-ENGINE_CASES = [(size, b, first, shapes, hw) for size in DEFAULT_BUCKETS for b in (1, 32)
+# batch 128: the flip program of a TTA batch of 64
+ENGINE_CASES = [(size, b, first, shapes, hw) for size in DEFAULT_BUCKETS for b in (1, 32, 128)
                 for first, shapes, hw in _engine_chains(size)]
 
 

@@ -1,8 +1,8 @@
 """Reference CenterNet decode in plain torch.
 
-Mirrors `tpucenterface/decode/reference.py::pseudo_nms`, `topk_2stage`,
-`decode_feats_with_idx`, `decode_landmarks`, `boxes_to_original` and
-`landmarks_to_original`:
+Mirrors `tpucenterface/decode/reference.py::pseudo_nms`, `decode_feats`,
+`topk_2stage`, `decode_feats_with_idx`, `decode_landmarks`,
+`boxes_to_original` and `landmarks_to_original`:
 
     scores = sigmoid(hm)
     keep   = (maxpool3x3(scores) == scores)   # -inf borders, plateaus all kept
@@ -114,6 +114,16 @@ def decode_feats_with_idx(
         wh_g = gather_cells(feats["wh"], top_idx)
         off_g = gather_cells(feats["off"], top_idx)
     return boxes_from_cells(top_idx, wh_g, off_g, w, cfg), top_scores, top_idx
+
+
+def decode_feats(
+    feats: Dict[str, torch.Tensor], cfg: DecodeConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Head maps -> (boxes (B,K,4) [x1,y1,x2,y2] in model-input pixels,
+    scores (B,K)); landmarks, where the model has them, come from
+    `decode_landmarks`."""
+    boxes, scores, _ = decode_feats_with_idx(feats, cfg)
+    return boxes, scores
 
 
 def decode_landmarks(

@@ -2,9 +2,9 @@
 
 Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
 `from_safetensors`, `_decode`, `_forward`, `results_to_detections`,
-`_identity_for`, `reload_weights`, `weights_version`, `detect`,
-`detect_batch`, `warmup`, `quantize`, `dequantize`, `stem_input_lut`) and
-`_export_scales`:
+`_identity_for`, `_single_fn`, `_batch_fn`, `_batch_flip_fn`,
+`reload_weights`, `weights_version`, `detect`, `detect_batch`, `warmup`,
+`quantize`, `dequantize`, `stem_input_lut`) and `_export_scales`:
 
     host:   zero-pad the frame to a shape bucket, copy to the device
     device: letterbox+normalize -> backbone -> neck -> heads -> decode
@@ -12,8 +12,11 @@ Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
     host:   threshold filter of the fixed-K result
 
 Construction folds BatchNorm, fuses the heads and bakes the input normalize
-into the stem as the JAX Detector does. Everything runs eagerly. The device is
-the GPU unless the caller passes another; asking for the GPU on a machine
+into the stem as the JAX Detector does. Everything runs eagerly: where the
+JAX Detector jits a program per signature (`_single_fn`, `_batch_fn`,
+`_batch_flip_fn`), the port returns a closure over the same eager torch ops,
+which takes device tensors of that signature and refuses others. The device
+is the GPU unless the caller passes another; asking for the GPU on a machine
 without one raises.
 
 Two switches of the config choose kernels of the port:
@@ -34,7 +37,9 @@ calibrated on uint8 frames or installed from persisted scales;
 residual blocks through the int8 block kernel (`ops.int8_block`).
 `dequantize()` returns to the bf16 forward.
 
-Not ported yet: `from_torch_pth`, the flip-TTA batch program, the
+Not ported yet: `from_torch_pth`, the int8-input program
+(`_batch_fn(int8_in=True)` raises `NotImplementedError`), `_batch_fn_auto`
+and `stage_inputs` (XLA's AUTO layouts; the port has no counterpart), the
 space-to-depth stem, and of `quantize` the QAT and AdaRound fine-tuning and
 the installation of fine-tuned parameters (`qat_steps`, `adaround_steps`,
 `quant_params` raise `NotImplementedError`).
@@ -43,7 +48,7 @@ the installation of fine-tuned parameters (`qat_steps`, `adaround_steps`,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +66,7 @@ from tpucenterface_torch.model.centernet import init_model, load_network
 from tpucenterface_torch.model.fast_forward import FastEngine
 from tpucenterface_torch.model.planar_engine import PlanarEngine
 from tpucenterface_torch.preprocess import (
+    letterbox_normalize,
     letterbox_normalize_batch,
     normalize_images,
     pad_to_bucket,
@@ -280,14 +286,17 @@ class Detector:
     # the device path
     # ------------------------------------------------------------------ #
 
-    def _decode(self, feats: Dict[str, torch.Tensor]):
+    def _decode(self, feats: Dict[str, torch.Tensor], max_dets: Optional[int] = None):
         """-> (boxes, scores, landmarks-or-None), all in model-input pixels;
-        K = min(max_dets, H*W) on every route. With `use_pallas`, a model
+        K = min(max_dets, H*W) on every route, `max_dets` overriding
+        DecodeConfig.max_dets for this call. With `use_pallas`, a model
         without a landmark head takes the fused decode kernel, and one with a
         landmark head takes the fused sigmoid + pseudo-NMS kernel for the
         dense stage ahead of the reference top-K and gathers (bit-equal to
         the reference decode)."""
         cfg = self.config.decode
+        if max_dets is not None and max_dets != cfg.max_dets:
+            cfg = dataclasses.replace(cfg, max_dets=max_dets)
         if cfg.use_pallas and "lm" not in feats:
             boxes, scores, _ = decode_feats_fused(feats, cfg)
             return boxes, scores, None
@@ -303,28 +312,6 @@ class Detector:
             return self._engine(x)
         return self.model(x)
 
-    def _run(self, images: np.ndarray, hws: np.ndarray, size: int, identity: bool):
-        """(B, Hp, Wp, 3) uint8 + (B, 2) content sizes -> (boxes, scores[, lm])
-        device tensors in original-image pixels."""
-        raw = self.config.model.stem_preprocess
-        pp = self.config.preprocess
-        with torch.inference_mode():
-            imgs = torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(self.device)
-            hw = torch.from_numpy(np.asarray(hws, np.int32)).to(self.device)
-            b = imgs.shape[0]
-            if identity:
-                x = normalize_images(imgs, pp, raw=raw)
-                scales = torch.ones((b,), dtype=torch.float32, device=self.device)
-                pads = torch.zeros((b, 2), dtype=torch.float32, device=self.device)
-            else:
-                x, scales, pads = letterbox_normalize_batch(imgs, hw, size, pp, raw=raw)
-            feats = self._forward(x)
-            boxes, scores, lm = self._decode(feats)
-            boxes = boxes_to_original(boxes, scales, pads, hw)
-            if lm is not None:
-                return boxes, scores, landmarks_to_original(lm, scales, pads, hw)
-            return boxes, scores
-
     def _identity_for(self, padded_hw, size: int, hws) -> bool:
         """True when every image in the call is exactly the model size, so
         the letterbox is the identity (PreprocessConfig.identity_fast_path)."""
@@ -334,18 +321,130 @@ class Detector:
             and bool((np.asarray(hws) == size).all())
         )
 
-    def results_to_detections(self, res, thresh: float) -> List[Detections]:
+    def results_to_detections(
+        self, res, thresh: float, lo: int = 0, hi: Optional[int] = None
+    ) -> List[Detections]:
         """Split a (boxes, scores[, landmarks]) tensor result into per-image
-        thresholded `Detections`."""
+        thresholded `Detections` for images lo..hi-1 (all by default)."""
         boxes, scores = res[0].cpu().numpy(), res[1].cpu().numpy()
         lms = res[2].cpu().numpy() if len(res) == 3 else None
+        hi = boxes.shape[0] if hi is None else hi
         out: List[Detections] = []
-        for i in range(boxes.shape[0]):
+        for i in range(lo, hi):
             keep = scores[i] >= thresh
             out.append(
                 Detections(boxes[i][keep], scores[i][keep], lms[i][keep] if lms is not None else None)
             )
         return out
+
+    # ------------------------------------------------------------------ #
+    # programs: one per signature, as the JAX Detector's jitted ones
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _check_inputs(imgs: torch.Tensor, hws: torch.Tensor, shape: Tuple[int, ...]) -> None:
+        """A program runs at the one signature it was made for, as a jitted
+        JAX program is compiled for one."""
+        if tuple(imgs.shape) != shape or imgs.dtype != torch.uint8:
+            raise ValueError(f"the program takes uint8 images {shape}, got {imgs.dtype} {tuple(imgs.shape)}")
+        if tuple(hws.shape) != shape[:-3] + (2,):
+            raise ValueError(f"the program takes sizes {shape[:-3] + (2,)}, got {tuple(hws.shape)}")
+
+    def _single_fn(self, padded_hw: Tuple[int, int], size: int, identity: bool = False):
+        """The one-image program: (uint8 (Hp, Wp, 3), hw (2,) int32) device
+        tensors -> boxes (K, 4), scores (K,)[, landmarks (K, 5, 2)] in
+        original-image pixels."""
+        raw = self.config.model.stem_preprocess
+        pp = self.config.preprocess
+        shape = (*padded_hw, 3)
+
+        def run(img_u8: torch.Tensor, hw: torch.Tensor):
+            self._check_inputs(img_u8, hw, shape)
+            with torch.inference_mode():
+                if identity:
+                    x = normalize_images(img_u8, pp, raw=raw)
+                    scale = torch.ones((), dtype=torch.float32, device=self.device)
+                    pad = torch.zeros((2,), dtype=torch.float32, device=self.device)
+                else:
+                    x, scale, pad = letterbox_normalize(img_u8, hw, size, pp, raw=raw)
+                boxes, scores, lm = self._decode(self._forward(x[None]))
+                boxes = boxes_to_original(boxes, scale[None], pad[None], hw[None])[0]
+                if lm is None:
+                    return boxes, scores[0]
+                return boxes, scores[0], landmarks_to_original(lm, scale[None], pad[None], hw[None])[0]
+
+        return run
+
+    def _batch_fn(
+        self,
+        batch: int,
+        padded_hw: Tuple[int, int],
+        size: int,
+        identity: bool = False,
+        max_dets: Optional[int] = None,
+        int8_in: bool = False,
+    ):
+        """The batch program: ((B, Hp, Wp, 3) uint8, (B, 2) int32) device
+        tensors -> boxes (B, K, 4), scores (B, K)[, landmarks (B, K, 5, 2)]
+        in original-image pixels, K = min(max_dets or DecodeConfig.max_dets,
+        H*W) of the head maps."""
+        if int8_in:
+            raise NotImplementedError("the port has no int8-input program yet")
+        raw = self.config.model.stem_preprocess
+        pp = self.config.preprocess
+        shape = (batch, *padded_hw, 3)
+
+        def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
+            self._check_inputs(imgs_u8, hws, shape)
+            with torch.inference_mode():
+                if identity:
+                    x = normalize_images(imgs_u8, pp, raw=raw)
+                    scales = torch.ones((batch,), dtype=torch.float32, device=self.device)
+                    pads = torch.zeros((batch, 2), dtype=torch.float32, device=self.device)
+                else:
+                    x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
+                boxes, scores, lm = self._decode(self._forward(x), max_dets=max_dets)
+                boxes = boxes_to_original(boxes, scales, pads, hws)
+                if lm is None:
+                    return boxes, scores
+                return boxes, scores, landmarks_to_original(lm, scales, pads, hws)
+
+        return run
+
+    def _batch_flip_fn(self, batch: int, padded_hw: Tuple[int, int], size: int):
+        """The batch program of the image and its horizontal mirror in one
+        forward of 2B images: the letterboxed square is mirrored on the
+        device, and the mirror's boxes (pixel x -> (size - 1) - x) and
+        landmarks (x un-mirrored, left/right pairs swapped by
+        DecodeConfig.lm_flip_perm) are un-mirrored before the inverse
+        letterbox. Needs a centered letterbox. Returns boxes (B, 2K, 4),
+        scores (B, 2K)[, landmarks (B, 2K, 5, 2)]: the first K of each row
+        from the image, the second K from its mirror; the caller merges."""
+        if not self.config.preprocess.center:
+            raise ValueError("the flip program needs a centered letterbox (PreprocessConfig.center)")
+        raw = self.config.model.stem_preprocess
+        pp = self.config.preprocess
+        perm = list(self.config.decode.lm_flip_perm)
+        shape = (batch, *padded_hw, 3)
+        edge = size - 1.0
+
+        def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
+            self._check_inputs(imgs_u8, hws, shape)
+            with torch.inference_mode():
+                x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
+                boxes, scores, lm = self._decode(self._forward(torch.cat([x, x.flip(2)])))
+                mir = boxes[batch:]
+                mir = torch.stack([edge - mir[..., 2], mir[..., 1], edge - mir[..., 0], mir[..., 3]], dim=-1)
+                boxes = boxes_to_original(torch.cat([boxes[:batch], mir], dim=1), scales, pads, hws)
+                scores = torch.cat([scores[:batch], scores[batch:]], dim=1)
+                if lm is None:
+                    return boxes, scores
+                lm_mir = lm[batch:]
+                lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1)[:, :, perm, :]
+                lm = landmarks_to_original(torch.cat([lm[:batch], lm_mir], dim=1), scales, pads, hws)
+                return boxes, scores, lm
+
+        return run
 
     # ------------------------------------------------------------------ #
     # public API
@@ -367,8 +466,15 @@ class Detector:
         h, w = image.shape[:2]
         padded = pad_to_bucket(image)
         identity = self._identity_for(padded.shape[:2], size, (h, w))
-        res = self._run(padded[None], np.array([[h, w]], np.int32), size, identity)
-        return self.results_to_detections(res, thresh)[0]
+        fn = self._single_fn(padded.shape[:2], size, identity=identity)
+        out = fn(
+            torch.from_numpy(np.ascontiguousarray(padded, np.uint8)).to(self.device),
+            torch.tensor([h, w], dtype=torch.int32, device=self.device),
+        )
+        boxes, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
+        keep = scores >= thresh
+        lm = out[2].cpu().numpy()[keep] if len(out) == 3 else None
+        return Detections(boxes[keep], scores[keep], lm)
 
     def detect_batch(
         self,
@@ -386,7 +492,11 @@ class Detector:
         if hws is None:
             hws = np.tile(np.array(images.shape[1:3], np.int32), (b, 1))
         identity = self._identity_for(images.shape[1:3], size, hws)
-        res = self._run(images, hws, size, identity)
+        fn = self._batch_fn(b, images.shape[1:3], size, identity=identity)
+        res = fn(
+            torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(self.device),
+            torch.from_numpy(np.asarray(hws, np.int32)).to(self.device),
+        )
         return self.results_to_detections(res, thresh)
 
     def warmup(self, shapes=((640, 640),), size: Optional[int] = None) -> None:

@@ -65,15 +65,18 @@ class FastEngine:
         self.device = resolve_device(device)
         self.net = load_network(folded_variables, cfg, self.device)
         self.plan = backbone_plan(cfg)
-        # the weights of every stride-1 block, packed once on the device in
-        # the kernel's layout (bfloat16, as the kernel computes with them)
+        # the weights of every block that `kernel_blocks` can name at some
+        # input height (stride 1, Cin <= MAX_CIN), packed once on the device
+        # in the kernel's layout (bfloat16, as the kernel computes with them)
         blocks = folded_variables["params"]["backbone"]
         self.packed: Dict[int, PackedMBConv] = {}
         if use_mbconv_kernel:
-            for i, (_, _, s, _) in enumerate(self.plan):
-                if s == 1:
+            cin = cfg.width(cfg.stem_channels)
+            for i, (_, c, s, _) in enumerate(self.plan):
+                if s == 1 and cin <= MAX_CIN:
                     args = (None if a is None else torch.from_numpy(a) for a in mbconv_args_from_block(blocks[f"block_{i}"]))
                     self.packed[i] = pack_fused_mbconv(*args, device=self.device)
+                cin = c
 
     def kernel_blocks(self, input_h: int) -> List[int]:
         """The blocks that take the fused kernel at an input `input_h` high."""
