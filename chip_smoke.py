@@ -13,9 +13,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, at the shapes the main paths give it, on ragged shapes and on
    tie-heavy inputs (the decode at the buckets' maps, batch 1, K = 1 and
    K = H*W, on constant, underflowing and one-band maps:
-   DECODE_KERNEL_CASES; the fused MBConv block under the planner's plan and
-   under another plan at each main-path shape, each plan logged; the
-   sigmoid + pseudo-NMS on plateaus across its tile seams); the one-block planar kernel, the int8 1x1 conv and the
+   DECODE_KERNEL_CASES, which include the eval path's flip batches of 32 and
+   128 images at every bucket's map, and the flagship's heads of a bs64 @
+   640 flip batch; the fused MBConv block under the planner's plan and under
+   another plan at each main-path shape, each plan logged, and under the
+   planner's plan at the eval path's flip batches of 128 images at 640, 416
+   and 512 and at the `large` preset's blocks; the sigmoid + pseudo-NMS on
+   plateaus across its tile seams); the one-block planar kernel, the int8 1x1 conv and the
    stride-2 int8 block, which no engine calls, are held to their plain
    versions here and timed in phase 5, and are on no path. The int8 kernels
    are integer-exact up to float32 epilogues that round as their plain
@@ -50,11 +54,17 @@ Phases, in order; any failure raises and the script exits non-zero:
       bs64 @ 640, module forward and fast engine, against the batch program
       on the batch and on its host-made mirror; flip + multi-scale TTA
       (`eval.batch_runner.batched_detect_tta`, scales 0.7 and 1.0) on
-      EVAL_TTA_IMAGES painted scenes of mixed sizes, scored with the WIDER
-      protocol (`eval.synth_eval.score_detections`) against the port's CPU
-      run of the same set (AP within 0.005, the same launch plan), with its
-      images/s; the landmark model's flip program at bs4 @ 320 (the fused
-      sigmoid + pseudo-NMS kernel, points un-mirrored and pair-swapped);
+      EVAL_TTA_IMAGES painted scenes of mixed sizes against the port's CPU
+      run of the same set (the same launch plan, the detections matched one
+      by one, the AP of the WIDER protocol, `eval.synth_eval.
+      score_detections`, within 0.005); the landmark model's flip program
+      at bs4 @ 320 (the fused sigmoid + pseudo-NMS kernel, points
+      un-mirrored and pair-swapped); then, outside the count, the TTA's
+      images/s over EVAL_RATE_IMAGES scenes of sides 256-1024, several runs;
+   g. the `large` preset (width 1.4, random weights from a seed) on the fast
+      engine at bs32 @ 640: ten launches of the fused MBConv kernel, its
+      heat map against the module forward's with the float32 forward as
+      arbiter;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -169,9 +179,13 @@ B4B_KERNEL_SHAPES = (
 # "constant" (every cell ties and is a peak), "underflow" (logits -120: every
 # sigmoid is 0, so the K slots are the lowest-index zeros), "band" (one band
 # of random logits among underflowing rows: the other bands keep only zeros);
-# the buckets' maps at 416, 640, 800 and 1024, batch 1, K = 1 and K = H*W.
-# The first six are the parent's cases, on the same inputs.
-# tests/test_torch_decode_select.py plans every one of them on the CPU.
+# the buckets' maps at 416, 640, 800 and 1024, batch 1, K = 1 and K = H*W;
+# then the eval path's shapes: the flip program decodes 2B images, B = 16 or
+# 64 (the {B/4, B} ladder of a TTA batch of 64), so batch 32 and 128 at the
+# map of every bucket (320 to 1024: maps 80 to 256), and the sparse heads at
+# the flip batch of bs64 @ 640. The first six are the parent's cases, on the
+# same inputs. tests/test_torch_decode_select.py plans every one of them on
+# the CPU.
 DECODE_KERNEL_CASES = (
     ("random 3*randn (32,160,160)", "random", (32, 160, 160), 200, False),
     ("sparse+plateaus (8,160,160)", "sparse", (8, 160, 160), 200, False),
@@ -187,6 +201,9 @@ DECODE_KERNEL_CASES = (
     ("constant map (4,40,40)", "constant", (4, 40, 40), 200, False),
     ("all-underflow map (4,160,160)", "underflow", (4, 160, 160), 200, False),
     ("one rich band beside empty ones (4,160,160)", "band", (4, 160, 160), 200, False),
+    *((f"eval flip batch ({b},{s // 4},{s // 4}), {s} bucket", "random", (b, s // 4, s // 4), 200, False)
+      for b in (32, 128) for s in (320, 416, 512, 640, 800, 1024)),
+    ("eval flip batch sparse+plateaus (128,160,160)", "sparse", (128, 160, 160), 200, False),
 )
 # B2's timed shapes beyond the main path's heads (bs32 @ 640, K = 200): one
 # 640 image (the flagship's heads of the first image), the 320 bucket at bs32
@@ -255,6 +272,13 @@ QUANT_MATCH_SHARE, QUANT_F32_HM_RATIO = 0.85, 8.0
 B7_MATCH_SHARE, B7_F32_SLACK, B7_F32_HM_RATIO = 0.9, 1.25, 1.1
 # images of the eval phase's TTA set (card against the port's CPU run)
 EVAL_TTA_IMAGES = 32
+# The eval phase's throughput set: painted scenes with each side drawn from
+# 256-1024 (so every bucket and many padded shapes, as in WIDER's mixed
+# sizes), timed over EVAL_RATE_RUNS runs after a warm-up run.
+EVAL_RATE_IMAGES, EVAL_RATE_SIDES, EVAL_RATE_RUNS = 256, (256, 1024), 5
+# The input sizes of the eval path's B3 checks beside 640 (the TTA buckets the
+# flagship's 384-512 scenes take at scales 0.7 and 1.0), each at batch 128.
+EVAL_MBCONV_SIZES = (416, 512)
 
 
 def log(msg: str) -> None:
@@ -544,16 +568,18 @@ def decode_case_feats(gen, heads, shape, dev):
     raise ValueError(heads)
 
 
-def phase_kernels_decode(det_feats):
+def phase_kernels_decode(det_feats, flip_feats):
     """decode_feats_fused (CUDA) against decode_feats_fused_plain on the card,
-    at the main path's heads and at DECODE_KERNEL_CASES. Returns the largest
-    error seen."""
+    at the main path's heads, at the flagship's heads of the eval path's flip
+    batch (bs64 @ 640 and its mirror) and at DECODE_KERNEL_CASES. Returns the
+    largest error seen."""
     from tpucenterface_torch.config import DecodeConfig
     from tpucenterface_torch.decode.fused_decode import decode_feats_fused, decode_feats_fused_plain, plan_decode
 
     dev = det_feats["hm"].device
     gen = torch.Generator().manual_seed(1234)
-    cases = [("main-path heads bs32@640", det_feats, DecodeConfig(max_dets=200))]
+    cases = [("main-path heads bs32@640", det_feats, DecodeConfig(max_dets=200)),
+             ("eval flip-batch heads bs128@640", flip_feats, DecodeConfig(max_dets=200))]
     cases += [(name, decode_case_feats(gen, heads, shape, dev), DecodeConfig(max_dets=k, wh_log=wh_log))
               for name, heads, shape, k, wh_log in DECODE_KERNEL_CASES]
     worst = 0.0
@@ -578,8 +604,9 @@ def phase_kernels_decode(det_feats):
 
 def mbconv_block_inputs(det, x):
     """{block: (NHWC bf16 input, (w1, b1, wd, bd, w2, b2), skip)} for the
-    blocks of MBCONV_BLOCKS_640: the activations the flagship network gives
-    each block on the batch `x`, and the block's own weights."""
+    blocks of MBCONV_BLOCKS_640: the activations the network of `det` (the
+    flagship's, or the `large` preset's) gives each block on the batch `x`,
+    and the block's own weights."""
     from tpucenterface_torch.weights.convert import mbconv_args_from_block
 
     bb = det.model.backbone
@@ -632,22 +659,25 @@ def _mbconv_check(name, x, args, skip, got, want, plan):
     return err
 
 
-def phase_kernels_mbconv(block_inputs):
+def phase_kernels_mbconv(block_inputs, more_inputs):
     """fused_mbconv (CUDA) against fused_mbconv_plain on the card: the six
     main-path shapes at batch 32 on the flagship's own activations and
     weights, the three shapes of a 320 input and ragged shapes on random
-    ones. Main-path shapes run on packed weights under the planner's plan,
-    and once more under another plan of `fused_mbconv_plans` (the first of
-    another tile or warp count); ragged ones on the six weights.
-    Returns {case: max |err|}."""
+    ones, then `more_inputs` ({label: what `mbconv_block_inputs` gives}: the
+    eval path's flip batches at batch 128, the `large` preset's blocks).
+    Main-path shapes run on packed weights under the planner's plan, and
+    once more under another plan of `fused_mbconv_plans` (the first of
+    another tile or warp count); ragged ones on the six weights; those of
+    `more_inputs` on packed weights under the planner's plan, as their paths
+    run them. Returns {case: max |err|}."""
     from tpucenterface_torch.ops import fused_mbconv as fm
 
     dev = next(iter(block_inputs.values()))[0].device
     gen = torch.Generator().manual_seed(4321)
-    cases = [(f"block {i} bs32@640", x, args, skip, True) for i, (x, args, skip) in block_inputs.items()]
+    cases = [(f"block {i} bs32@640", x, args, skip, "main") for i, (x, args, skip) in block_inputs.items()]
     for hw, cin, ce, cout, expand, skip in MBCONV_SHAPES_320:
         x, args = _random_mbconv(gen, 32, hw, hw, cin, ce, cout, expand, dev)
-        cases.append((f"bs32 {hw}x{hw} of a 320 input, random", x, args, skip, True))
+        cases.append((f"bs32 {hw}x{hw} of a 320 input, random", x, args, skip, "main"))
     for name, cin, ce, cout, expand, skip in (
         ("ragged expand+skip 2x26x38", 24, 144, 24, True, True),
         ("ragged expand 2x26x38", 16, 96, 24, True, False),
@@ -656,14 +686,16 @@ def phase_kernels_mbconv(block_inputs):
     ):
         h, w = (19, 33) if cin == 160 else (26, 38)
         x, args = _random_mbconv(gen, 2, h, w, cin, ce, cout, expand, dev)
-        cases.append((name, x, args, skip, False))
+        cases.append((name, x, args, skip, "six"))
+    for label, inputs in more_inputs.items():
+        cases += [(f"block {i} {label}", x, args, skip, "packed") for i, (x, args, skip) in inputs.items()]
     errs = {}
-    for name, x, args, skip, main in cases:
+    for name, x, args, skip, mode in cases:
         b, h, w, cin = x.shape
         ce, cout, expand = args[2].shape[-1], args[4].shape[-1], args[0] is not None
         plan = fm.plan_fused_mbconv(b, h, w, cin, ce, cout, expand)
         want = fm.fused_mbconv_plain(x, *args, skip=skip).float()
-        if not main:
+        if mode == "six":
             got = fm.fused_mbconv(x, *args, skip=skip).float()
             torch.cuda.synchronize()
             errs[name] = _mbconv_check(name, x, args, skip, got, want, plan)
@@ -672,6 +704,9 @@ def phase_kernels_mbconv(block_inputs):
         got = fm.fused_mbconv(x, packed, skip=skip).float()
         torch.cuda.synchronize()
         errs[name] = _mbconv_check(name, x, args, skip, got, want, plan)
+        if mode == "packed":
+            del got, want
+            continue
         # another plan: the first candidate whose tile or warps differ from the planner's
         other = next(q for q in fm.fused_mbconv_plans(b, h, w, cin, ce, cout, expand)
                      if (q.tile_h, q.tile_w, q.warps) != (plan.tile_h, plan.tile_w, plan.warps))
@@ -1281,6 +1316,81 @@ def phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640_m
     return launches
 
 
+def large_preset_detectors(cfg):
+    """The `large` preset (width 1.4, Cin up to 136 at the kernel's blocks)
+    with `cfg`'s decode, on random weights from a seed: its module-forward,
+    fast-engine and float32 Detectors, one set of weights."""
+    import dataclasses
+
+    from tpucenterface_torch import Detector, preset
+    from tpucenterface_torch.model.centernet import init_model
+
+    large = dataclasses.replace(preset("large"), decode=cfg.decode)
+    _, variables = init_model(large.model, seed=17)
+    # torch's default initializer shrinks the activations about threefold a
+    # conv, so that the deep blocks would see values near 0: each kernel is
+    # redrawn at variance gain / fan_in (He's 2 ahead of a ReLU, 1 for the
+    # linear projects), and each BatchNorm's statistics and affine drawn
+    # around the identity, so every block sees values of order 1
+    rng = np.random.RandomState(17)
+
+    def redraw(params, stats, path):
+        for k, v in params.items():
+            if isinstance(v, dict):
+                redraw(v, stats.get(k, {}) if isinstance(stats, dict) else {}, path + (k,))
+            elif k == "kernel":
+                gain = 1.0 if "project" in path or path[-1] == "out" else 2.0
+                params[k] = rng.normal(0, np.sqrt(gain / np.prod(v.shape[:-1])), v.shape).astype(np.float32)
+            elif path[-1] == "bn":
+                params[k] = rng.uniform(0.7, 1.3, v.shape) if k == "scale" else rng.uniform(-0.2, 0.2, v.shape)
+                params[k] = params[k].astype(np.float32)
+                stats["mean"] = rng.uniform(-0.3, 0.3, v.shape).astype(np.float32)
+                stats["var"] = rng.uniform(0.7, 1.3, v.shape).astype(np.float32)
+
+    redraw(variables["params"], variables["batch_stats"], ())
+
+    def make(**model):
+        return Detector(variables=variables, config=dataclasses.replace(
+            large, model=dataclasses.replace(large.model, **model)))
+
+    return make(), make(inference_engine="fast"), make(compute_dtype="float32")
+
+
+def phase_main_large(dets, imgs, x):
+    """Path g, the `large` preset's fast engine (random weights): one
+    `detect_batch` at bs32 @ 640 on the painted batch `imgs` with every
+    launch counter set to 0 just before and read just after (B3 once a
+    kernel block, B2 once), the result finite and in bounds; then its head
+    map on the normalized batch `x` against the module forward's, with the
+    float32 forward as arbiter (FAST_F32_HM_RATIO, as for the flagship's
+    fast engine). Returns the launch counts."""
+    module, fast, f32 = dets
+    blocks = fast._engine.kernel_blocks(640)
+    zero_launches()
+    d = fast.detect_batch(imgs, score_thresh=0.0)
+    launches = read_launches()
+    log(f"[main] large preset, fast engine bs32@640 ({len(blocks)} kernel blocks {blocks}): launches {launches}")
+    if launches != launch_counts(decode_feats_fused=1, fused_mbconv=len(blocks)):
+        raise AssertionError(f"[main] large preset: launches {launches}")
+    for r in d:
+        if not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all()) or len(r.scores) != 200:
+            raise AssertionError("[main] large preset: non-finite or short result")
+        if (r.boxes < 0).any() or (r.boxes > 640).any():
+            raise AssertionError("[main] large preset: boxes outside the image")
+    # the counts are read; what follows compares and launches outside the count
+    with torch.inference_mode():
+        hm = {name: det._forward(x)["hm"].float() for name, det in (("fast", fast), ("module", module), ("f32", f32))}
+    err = {name: (hm[name] - hm["f32"]).abs().mean().item() for name in ("fast", "module")}
+    between = (hm["fast"] - hm["module"]).abs()
+    log(f"[main] large preset bs32@640, heat-map logits: mean |fast - float32| {err['fast']:.4g}, mean |module - "
+        f"float32| {err['module']:.4g}; fast against module mean {between.mean().item():.4g}, max "
+        f"{between.max().item():.4g} (logits spread {hm['f32'].std().item():.4g})")
+    if not torch.isfinite(hm["fast"]).all() or err["fast"] > FAST_F32_HM_RATIO * err["module"]:
+        raise AssertionError("[main] large preset: the fast engine is further from the float32 forward than the "
+                             "module forward is")
+    return launches
+
+
 def _hm_distance(det, x, ref_hm):
     """Mean |hm - ref_hm| of `det`'s forward on the normalized batch `x`."""
     with torch.inference_mode():
@@ -1371,15 +1481,15 @@ def phase_main_quant(dets, det_module, det_f32, d640_module, x, module_feats):
     return launches
 
 
-def mixed_painted_set(seed, n):
-    """`n` painted scenes of mixed sizes, each side 384-512, and records of
-    their faces for the WIDER scorer (xywh boxes, none invalid)."""
+def mixed_painted_set(seed, n, sides=(384, 512)):
+    """`n` painted scenes of mixed sizes, each side drawn from `sides`, and
+    records of their faces for the WIDER scorer (xywh boxes, none invalid)."""
     from tpucenterface_torch.data.wider import WiderImage
 
     rng = np.random.RandomState(seed)
     imgs, recs = [], []
     for i in range(n):
-        img, g = paint_scene(rng, tuple(rng.randint(384, 513, 2)), int(rng.randint(2, 6)))
+        img, g = paint_scene(rng, tuple(rng.randint(sides[0], sides[1] + 1, 2)), int(rng.randint(2, 6)))
         imgs.append(img)
         xywh = np.concatenate([g[:, :2], g[:, 2:] - g[:, :2]], axis=1)
         recs.append(WiderImage("", f"painted/{i}", xywh, np.zeros(len(g), bool)))
@@ -1434,14 +1544,17 @@ def phase_eval(det, det_fast, det_cpu, smi):
       on the host-mirrored batch, un-mirrored, each matched as the fast
       engine is matched against the module forward (FAST_MATCH_SHARE);
     - `eval.batch_runner.batched_detect_tta` (flip at scales 0.7 and 1.0) on
-      a set of mixed-size painted scenes, scored by `eval.synth_eval.
-      score_detections` against the painted faces, against the same set
-      through the port's CPU Detector: AP within 0.005 on each split, the
-      same launch plan;
+      a set of mixed-size painted scenes, against the same set through the
+      port's CPU Detector: the same launch plan, the merged detections
+      matched one by one (FAST_MATCH_SHARE), and the AP of each split
+      (`eval.synth_eval.score_detections` against the painted faces) within
+      0.005;
     - a landmark model (random weights from a seed) through one flip
       program at bs4 @ 320: the fused dense stage launched, the points
       finite, inside the image, and matched, un-mirrored and pair-swapped,
       to the batch program's on the mirrored images.
+    After the counts are read, `batched_detect_tta`'s throughput on
+    EVAL_RATE_IMAGES scenes of sides EVAL_RATE_SIDES, EVAL_RATE_RUNS runs.
     Returns the launch counts."""
     from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig, ModelConfig
     from tpucenterface_torch.eval.batch_runner import batched_detect_tta
@@ -1487,14 +1600,19 @@ def phase_eval(det, det_fast, det_cpu, smi):
 
     cpu_log = []
     cpu = batched_detect_tta(det_cpu, tta_imgs, launch_log=cpu_log, **tta)
+    n, bad = count_unmatched(card, cpu)
+    log(f"[eval] batched_detect_tta, card against CPU: merged detections >= {BF16_FIRM} of either without a "
+        f"partner within {BF16_BOX_ATOL} px and {BF16_SCORE_ATOL} on the other: {bad} of {n}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[eval] batched_detect_tta: card and CPU differ on {bad} of {n} detections")
     ap = {}
     for where, dets in (("card", card), ("cpu", cpu)):
         ap[where] = score_detections([np.concatenate([d.boxes, d.scores[:, None]], 1) for d in dets], tta_recs)
     log(f"[eval] batched_detect_tta scales (0.7, 1.0) + flip on {len(tta_imgs)} painted scenes (sides 384-512): "
         f"{len(logs[1])} launches {sorted(set(logs[1]))}; AP card {json.dumps(ap['card'])}, "
         f"CPU {json.dumps(ap['cpu'])} on {smi}")
-    log(f"[eval] batched_detect_tta: {len(tta_imgs) / tta_s:.2f} images/s ({tta_s * 1e3:.1f} ms for "
-        f"{len(tta_imgs)} images, module forward, after one warm-up run) on {smi}")
+    log(f"[eval] batched_detect_tta smoke reading: {len(tta_imgs) / tta_s:.2f} images/s ({tta_s * 1e3:.1f} ms "
+        f"for {len(tta_imgs)} images, module forward, after one warm-up run) on {smi}")
     if cpu_log != logs[1]:
         raise AssertionError(f"[eval] launch plans differ: card {logs[1]}, CPU {cpu_log}")
     for split in ap["cpu"]:
@@ -1502,8 +1620,6 @@ def phase_eval(det, det_fast, det_cpu, smi):
             raise AssertionError(f"[eval] AP on {split}: card {ap['card'][split]}, CPU {ap['cpu'][split]}")
     if min(ap["card"].values()) < 0.9:
         raise AssertionError(f"[eval] the painted faces are not found: AP {ap['card']}")
-    prof = device_profile(lambda: batched_detect_tta(det, tta_imgs, **tta), iters=3)
-    log(f"[eval] profile of batched_detect_tta on the {len(tta_imgs)} scenes: {json.dumps(prof)} on {smi}")
 
     first, _, second, mirrored = lm_halves
     for d in first + second:
@@ -1516,7 +1632,35 @@ def phase_eval(det, det_fast, det_cpu, smi):
         f"the batch program's on the mirrored images, un-mirrored and pair-swapped: {bad} of {n} on {smi}")
     if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
         raise AssertionError(f"[eval] landmark flip program: {bad} of {n} detections unmatched")
+    eval_throughput(det, tta, smi)
     return launches
+
+
+def eval_throughput(det, tta, smi):
+    """`batched_detect_tta` (module forward) over EVAL_RATE_IMAGES painted
+    scenes of sides EVAL_RATE_SIDES: images/s of each of EVAL_RATE_RUNS runs
+    after a warm-up run, and a profile of two runs (device busy and idle
+    share, top device ops)."""
+    from tpucenterface_torch.eval.batch_runner import batched_detect_tta
+
+    imgs, _ = mixed_painted_set(44, EVAL_RATE_IMAGES, EVAL_RATE_SIDES)
+    plan = []
+    batched_detect_tta(det, imgs, launch_log=plan, **tta)  # warm-up
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(EVAL_RATE_RUNS):
+        t0 = time.perf_counter()
+        batched_detect_tta(det, imgs, **tta)
+        rates.append(len(imgs) / (time.perf_counter() - t0))
+    shapes = sorted({p[1] for p in plan})
+    rungs = sorted({p[0] for p in plan})
+    log(f"[eval] batched_detect_tta throughput, scales (0.7, 1.0) + flip, module forward, {len(imgs)} painted "
+        f"scenes of sides {EVAL_RATE_SIDES[0]}-{EVAL_RATE_SIDES[1]} ({len(shapes)} padded shapes, {len(plan)} "
+        f"launches a run, rungs {rungs}, sizes {sorted({p[2] for p in plan})}): images/s of {EVAL_RATE_RUNS} runs "
+        f"{[round(r, 2) for r in rates]}, median {float(np.median(rates)):.2f}, min {min(rates):.2f}, "
+        f"max {max(rates):.2f} on {smi}")
+    prof = device_profile(lambda: batched_detect_tta(det, imgs, **tta), iters=2)
+    log(f"[eval] profile of batched_detect_tta on the {len(imgs)} scenes: {json.dumps(prof)} on {smi}")
 
 
 def normalize_raw(det, imgs, dev):
@@ -1941,6 +2085,26 @@ def main() -> int:
         x = normalize_images(torch.from_numpy(feats_imgs).to("cuda"), det.config.preprocess, raw=True)
         det_feats = det._forward(x)
     block_inputs = mbconv_block_inputs(det, x)
+    # the eval path's flip batches (bs64 and its mirror, the flip program's
+    # 128-image forward) at 640 and at the TTA buckets of EVAL_MBCONV_SIZES,
+    # and the `large` preset's blocks at bs32 @ 640
+    more_inputs = {}
+    for size in (640,) + EVAL_MBCONV_SIZES:
+        if not set(MBCONV_BLOCKS_640) <= set(det_fast._engine.kernel_blocks(size)):
+            raise AssertionError(f"[kernels] the fast engine's blocks at {size}: {det_fast._engine.kernel_blocks(size)}")
+        imgs, _ = paint_batch(size, 64, (size, size))
+        with torch.inference_mode():
+            flip_x = normalize_raw(det, np.concatenate([imgs, imgs[:, :, ::-1]]), "cuda")
+            if size == 640:
+                flip_feats = det._forward(flip_x)
+        more_inputs[f"bs128@{size} flip batch"] = mbconv_block_inputs(det, flip_x)
+        del flip_x
+    large_dets = large_preset_detectors(cfg)
+    with torch.inference_mode():
+        x_large = normalize_raw(large_dets[0], feats_imgs, "cuda")
+    if not set(MBCONV_BLOCKS_640) <= set(large_dets[1]._engine.kernel_blocks(640)):
+        raise AssertionError(f"[kernels] the large preset's blocks at 640: {large_dets[1]._engine.kernel_blocks(640)}")
+    more_inputs["bs32@640 large preset"] = mbconv_block_inputs(large_dets[0], x_large)
     imgs320, _ = paint_batch(9, 32, (320, 320))
     with torch.inference_mode():
         x320 = normalize_images(torch.from_numpy(imgs320).to("cuda"), det.config.preprocess, raw=True)
@@ -1948,12 +2112,13 @@ def main() -> int:
     singles = planar_chain_inputs(det, x, 640, PLANAR_SINGLE_BLOCKS)
     planar_one, planar_many = phase_kernels_planar(chains, singles)
     errs = {
-        "decode_feats_fused": phase_kernels_decode(det_feats),
-        "fused_mbconv": max(phase_kernels_mbconv(block_inputs).values()),
+        "decode_feats_fused": phase_kernels_decode(det_feats, flip_feats),
+        "fused_mbconv": max(phase_kernels_mbconv(block_inputs, more_inputs).values()),
         "sigmoid_pseudo_nms_fused": phase_kernels_nms(),
         "planar_mbconv": max(planar_one.values()),
         "planar_mbconv_chain": max(planar_many.values()),
     }
+    del more_inputs, flip_feats
     quant_dets, _ = quant_detectors(cfg)
     int8_inputs = quant_kernel_inputs(quant_dets["library"]._quant, x)
     errs.update(phase_kernels_int8(int8_inputs))
@@ -1975,7 +2140,8 @@ def main() -> int:
              phase_main_landmarks(),
              phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640, x, det_feats),
              phase_main_quant(quant_dets, det, det_f32, d640, x, det_feats),
-             phase_eval(det, det_fast, det_cpu, smi)]
+             phase_eval(det, det_fast, det_cpu, smi),
+             phase_main_large(large_dets, feats_imgs, x_large)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

@@ -510,16 +510,6 @@ def test_programs_refuse_what_they_cannot_run():
     det = T.Detector(config=T.DetectorConfig(default_size=PSIZE), device="cpu")
     with pytest.raises(NotImplementedError, match="int8-input"):
         det._batch_fn(2, (PSIZE, PSIZE), PSIZE, identity=True, int8_in=True)
-    fn = det._batch_fn(2, (PSIZE, PSIZE), PSIZE)
-    hws = torch.full((2, 2), PSIZE, dtype=torch.int32)
-    with pytest.raises(ValueError, match="uint8 images"):
-        fn(torch.zeros((3, PSIZE, PSIZE, 3), dtype=torch.uint8), hws)
-    with pytest.raises(ValueError, match="uint8 images"):
-        fn(torch.zeros((2, PSIZE, PSIZE, 3)), hws)
-    with pytest.raises(ValueError, match="sizes"):
-        fn(torch.zeros((2, PSIZE, PSIZE, 3), dtype=torch.uint8), hws[:1])
-    with pytest.raises(ValueError, match="uint8 images"):
-        det._single_fn((PSIZE, PSIZE), PSIZE)(torch.zeros((PSIZE, 2 * PSIZE, 3), dtype=torch.uint8), hws[0])
     uncentered = T.Detector(config=T.DetectorConfig(preprocess=T.PreprocessConfig(center=False)), device="cpu")
     with pytest.raises(ValueError, match="centered letterbox"):
         uncentered._batch_flip_fn(2, (PSIZE, PSIZE), PSIZE)

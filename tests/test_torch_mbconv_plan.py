@@ -5,9 +5,10 @@ The kernel runs only on the card; what surrounds it is checked here:
 - `plan_fused_mbconv` covers the map (every output position in one tile,
   every output channel in one block's rectangles, one group of them at the
   model's shapes) within the shared memory a block may use, for every block
-  that `model/fast_forward.py::kernel_blocks` sends to the kernel at inputs
-  of 640, 320, 800 and 1024 at batch 1 and 32, and at `chip_smoke.py`'s
-  ragged shapes; so does every candidate of `fused_mbconv_plans`;
+  that `model/fast_forward.py::kernel_blocks` sends to the kernel at every
+  bucket at batch 1, 32 and 128, of the default model and of the `large`
+  preset, and at `chip_smoke.py`'s ragged shapes; so does every candidate
+  of `fused_mbconv_plans`;
 - the planner refuses what the kernel cannot run;
 - `pack_fused_mbconv` / `unpack_fused_mbconv` round-trip bit for bit, and the
   packed bytes are laid out as the kernel reads them;
@@ -16,6 +17,7 @@ The kernel runs only on the card; what surrounds it is checked here:
 - the variants the planner offers are the ones the kernel instantiates.
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 import tpucenterface_torch.model.fast_forward as ff
-from tpucenterface_torch.config import ModelConfig
+from tpucenterface_torch.config import DEFAULT_BUCKETS, ModelConfig, preset
 from tpucenterface_torch.model.backbone import backbone_plan
 from tpucenterface_torch.model.centernet import init_model
 from tpucenterface_torch.ops import fused_mbconv as fm
@@ -36,10 +38,9 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "tpucenterface_torch" / "csrc" / "mbconv.cu"
 
 
-def _engine_shapes(input_h: int):
+def _engine_shapes(input_h: int, cfg: ModelConfig = ModelConfig(folded=True)):
     """(map, Cin, Ce, Cout, expand) of every block the fast engine sends to
-    the kernel at an `input_h` input of the default model."""
-    cfg = ModelConfig(folded=True)
+    the kernel at an `input_h` input of the model `cfg` (the default one)."""
     fused = set(ff.kernel_blocks(cfg, input_h))
     hw = (input_h - 1) // 2 + 1
     cin, out = cfg.width(cfg.stem_channels), []
@@ -83,6 +84,17 @@ def test_plan_covers_every_engine_block(input_h, batch):
         if cout <= 96:
             # every output channel of the model's blocks in one pass
             assert plan.grid[1] == 1, (hw, cin, ce, cout, plan)
+
+
+@pytest.mark.parametrize("batch", [1, 32, 128])
+@pytest.mark.parametrize("input_h", DEFAULT_BUCKETS)
+def test_plan_covers_every_large_preset_block(input_h, batch):
+    """The `large` preset (width 1.4: Cin up to 136, Ce up to 816) at every
+    bucket: the blocks the fast engine sends to the kernel, each covered."""
+    shapes = _engine_shapes(input_h, dataclasses.replace(preset("large").model, folded=True))
+    assert len(shapes) >= 4 and max(cin for _, cin, _, _, _ in shapes) <= fm.MAX_CIN
+    for hw, cin, ce, cout, expand in shapes:
+        _covers(fm.plan_fused_mbconv(batch, hw, hw, cin, ce, cout, expand), batch, hw, hw, cin, ce, cout, expand)
 
 
 # chip_smoke.py's ragged cases: (B, H, W, Cin, Ce, Cout, expand)

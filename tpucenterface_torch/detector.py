@@ -15,9 +15,9 @@ Construction folds BatchNorm, fuses the heads and bakes the input normalize
 into the stem as the JAX Detector does. Everything runs eagerly: where the
 JAX Detector jits a program per signature (`_single_fn`, `_batch_fn`,
 `_batch_flip_fn`), the port returns a closure over the same eager torch ops,
-which takes device tensors of that signature and refuses others. The device
-is the GPU unless the caller passes another; asking for the GPU on a machine
-without one raises.
+which takes device tensors of that signature. The device is the GPU unless
+the caller passes another; asking for the GPU on a machine without one
+raises.
 
 Two switches of the config choose kernels of the port:
 - `ModelConfig.inference_engine`: the default `"flax"` is the module forward;
@@ -66,7 +66,6 @@ from tpucenterface_torch.model.centernet import init_model, load_network
 from tpucenterface_torch.model.fast_forward import FastEngine
 from tpucenterface_torch.model.planar_engine import PlanarEngine
 from tpucenterface_torch.preprocess import (
-    letterbox_normalize,
     letterbox_normalize_batch,
     normalize_images,
     pad_to_bucket,
@@ -341,37 +340,14 @@ class Detector:
     # programs: one per signature, as the JAX Detector's jitted ones
     # ------------------------------------------------------------------ #
 
-    @staticmethod
-    def _check_inputs(imgs: torch.Tensor, hws: torch.Tensor, shape: Tuple[int, ...]) -> None:
-        """A program runs at the one signature it was made for, as a jitted
-        JAX program is compiled for one."""
-        if tuple(imgs.shape) != shape or imgs.dtype != torch.uint8:
-            raise ValueError(f"the program takes uint8 images {shape}, got {imgs.dtype} {tuple(imgs.shape)}")
-        if tuple(hws.shape) != shape[:-3] + (2,):
-            raise ValueError(f"the program takes sizes {shape[:-3] + (2,)}, got {tuple(hws.shape)}")
-
     def _single_fn(self, padded_hw: Tuple[int, int], size: int, identity: bool = False):
         """The one-image program: (uint8 (Hp, Wp, 3), hw (2,) int32) device
         tensors -> boxes (K, 4), scores (K,)[, landmarks (K, 5, 2)] in
-        original-image pixels."""
-        raw = self.config.model.stem_preprocess
-        pp = self.config.preprocess
-        shape = (*padded_hw, 3)
+        original-image pixels: the batch program of one image."""
+        batch = self._batch_fn(1, padded_hw, size, identity=identity)
 
         def run(img_u8: torch.Tensor, hw: torch.Tensor):
-            self._check_inputs(img_u8, hw, shape)
-            with torch.inference_mode():
-                if identity:
-                    x = normalize_images(img_u8, pp, raw=raw)
-                    scale = torch.ones((), dtype=torch.float32, device=self.device)
-                    pad = torch.zeros((2,), dtype=torch.float32, device=self.device)
-                else:
-                    x, scale, pad = letterbox_normalize(img_u8, hw, size, pp, raw=raw)
-                boxes, scores, lm = self._decode(self._forward(x[None]))
-                boxes = boxes_to_original(boxes, scale[None], pad[None], hw[None])[0]
-                if lm is None:
-                    return boxes, scores[0]
-                return boxes, scores[0], landmarks_to_original(lm, scale[None], pad[None], hw[None])[0]
+            return tuple(r[0] for r in batch(img_u8[None], hw[None]))
 
         return run
 
@@ -392,10 +368,8 @@ class Detector:
             raise NotImplementedError("the port has no int8-input program yet")
         raw = self.config.model.stem_preprocess
         pp = self.config.preprocess
-        shape = (batch, *padded_hw, 3)
 
         def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
-            self._check_inputs(imgs_u8, hws, shape)
             with torch.inference_mode():
                 if identity:
                     x = normalize_images(imgs_u8, pp, raw=raw)
@@ -425,11 +399,9 @@ class Detector:
         raw = self.config.model.stem_preprocess
         pp = self.config.preprocess
         perm = list(self.config.decode.lm_flip_perm)
-        shape = (batch, *padded_hw, 3)
         edge = size - 1.0
 
         def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
-            self._check_inputs(imgs_u8, hws, shape)
             with torch.inference_mode():
                 x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
                 boxes, scores, lm = self._decode(self._forward(torch.cat([x, x.flip(2)])))

@@ -17,7 +17,7 @@ out.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -28,19 +28,29 @@ from tpucenterface_torch.ops.fused_mbconv import MAX_CIN, PackedMBConv, fused_mb
 from tpucenterface_torch.weights.convert import mbconv_args_from_block
 
 
-def kernel_blocks(cfg: ModelConfig, input_h: int, min_kernel_hw: int = 24) -> List[int]:
-    """Indices of the backbone blocks that take the fused kernel at an input
-    `input_h` high: stride 1, map height >= `min_kernel_hw` and even
-    (`tpucenterface/model/fast_forward.py:122-127`), and no more input
-    channels than the kernel's shared memory holds."""
-    hw = (input_h - 1) // 2 + 1  # the stem: 3x3, stride 2, padding 1
-    cin = cfg.width(cfg.stem_channels)
-    out = []
+def fusable_blocks(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """(index, stride of its input map) of every block the fused kernel can
+    take at some input size: stride 1, and no more input channels than the
+    kernel's shared memory holds (MAX_CIN)."""
+    stride, cin, out = 2, cfg.width(cfg.stem_channels), []  # the stem halves the input
     for i, (_, c, s, _) in enumerate(backbone_plan(cfg)):
-        if s == 1 and hw >= min_kernel_hw and hw % 2 == 0 and cin <= MAX_CIN:
+        if s == 1 and cin <= MAX_CIN:
+            out.append((i, stride))
+        stride, cin = stride * s, c
+    return out
+
+
+def kernel_blocks(cfg: ModelConfig, input_h: int, min_kernel_hw: int = 24) -> List[int]:
+    """Indices of the `fusable_blocks` that take the fused kernel at an input
+    `input_h` high: map height >= `min_kernel_hw` and even
+    (`tpucenterface/model/fast_forward.py:122-127`). Each stride-2 conv
+    (3x3, padding 1) gives ceil(h / 2) rows, so a map is ceil(input_h /
+    stride) high."""
+    out = []
+    for i, stride in fusable_blocks(cfg):
+        hw = -(-input_h // stride)
+        if hw >= min_kernel_hw and hw % 2 == 0:
             out.append(i)
-        hw = (hw - 1) // s + 1
-        cin = c
     return out
 
 
@@ -65,18 +75,14 @@ class FastEngine:
         self.device = resolve_device(device)
         self.net = load_network(folded_variables, cfg, self.device)
         self.plan = backbone_plan(cfg)
-        # the weights of every block that `kernel_blocks` can name at some
-        # input height (stride 1, Cin <= MAX_CIN), packed once on the device
-        # in the kernel's layout (bfloat16, as the kernel computes with them)
+        # the weights of every block of `fusable_blocks`, packed once on the
+        # device in the kernel's layout (bfloat16, as the kernel computes with them)
         blocks = folded_variables["params"]["backbone"]
         self.packed: Dict[int, PackedMBConv] = {}
         if use_mbconv_kernel:
-            cin = cfg.width(cfg.stem_channels)
-            for i, (_, c, s, _) in enumerate(self.plan):
-                if s == 1 and cin <= MAX_CIN:
-                    args = (None if a is None else torch.from_numpy(a) for a in mbconv_args_from_block(blocks[f"block_{i}"]))
-                    self.packed[i] = pack_fused_mbconv(*args, device=self.device)
-                cin = c
+            for i, _ in fusable_blocks(cfg):
+                args = (None if a is None else torch.from_numpy(a) for a in mbconv_args_from_block(blocks[f"block_{i}"]))
+                self.packed[i] = pack_fused_mbconv(*args, device=self.device)
 
     def kernel_blocks(self, input_h: int) -> List[int]:
         """The blocks that take the fused kernel at an input `input_h` high."""
