@@ -8,23 +8,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
    `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/planar_chain.cu`,
    `csrc/int8_conv.cu`, `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with
-   nvcc into build/kernels/, one nvcc per source, all started together;
+   nvcc into build/kernels/, one nvcc per source, and the host staging
+   kernel (`native/stage_ext.cpp`) with g++ into build/native/, all started
+   together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
    tie-heavy inputs (the decode at the buckets' maps, batch 1, K = 1 and
    K = H*W, on constant, underflowing and one-band maps:
    DECODE_KERNEL_CASES, which include the eval path's flip batches of 32 and
-   128 images at every bucket's map, and the flagship's heads of a bs64 @
-   640 flip batch; the fused MBConv block under the planner's plan and under
-   another plan at each main-path shape, each plan logged, and under the
-   planner's plan at the eval path's flip batches of 128 images at 640, 416
-   and 512 and at the `large` preset's blocks; the sigmoid + pseudo-NMS on
-   plateaus across its tile seams); the one-block planar kernel, the int8 1x1 conv and the
-   stride-2 int8 block, which no engine calls, are held to their plain
-   versions here and timed in phase 5, and are on no path. The int8 kernels
-   are integer-exact up to float32 epilogues that round as their plain
-   versions do, so they are held to them bit for bit, at the flagship's
-   quantized weights and calibrated scales;
+   128 images at every bucket's map, the flagship's heads of a bs64 @ 640
+   flip batch, and K = 100 at the serving rungs of 128, 32 and 8 images;
+   the fused MBConv block under the planner's plan and under another plan
+   at each main-path shape, each plan logged, and under the planner's plan
+   at the eval path's flip batches of 128 images at 640, 416 and 512, at
+   the serving rungs of 8 and 2 images @ 640 and at the `large` preset's
+   blocks; the sigmoid + pseudo-NMS on plateaus across its tile seams and
+   at the serving rungs (8 and 2, 160, 160)); the one-block planar kernel,
+   the int8 1x1 conv and the stride-2 int8 block, which no engine calls,
+   are held to their plain versions here and timed in phase 5, and are on
+   no path. The int8 kernels are integer-exact up to float32 epilogues that
+   round as their plain versions do, so they are held to them bit for bit,
+   at the flagship's quantized weights and calibrated scales;
 4. main paths, each with every launch counter set to 0 just before and read
    just after:
    a. `Detector.detect_batch` / `detect` on the flagship weights
@@ -65,6 +69,20 @@ Phases, in order; any failure raises and the script exits non-zero:
       engine at bs32 @ 640: ten launches of the fused MBConv kernel, its
       heat map against the module forward's with the float32 forward as
       arbiter;
+   h. the serving runtime (`[serving]`, `runtime/serving.py` and
+      `runtime/video.py`): ServingEngine at 128 images a launch, K = 100,
+      pinned staging, 512 pre-sized 640 frames from 4 threads in requests of
+      1-16, on the module forward (B2 once a launch) and the fast engine (B3
+      ten times), each request against a direct detect_batch; a landmark
+      model's engine at rungs 8 and 2 (B1); the int8-input engine on the
+      quantized B7 route against the uint8 engine, bit-identical (B7 ten
+      launches a launch); ServingRouter on sides 256-1024 around a hot
+      `reload_weights` from another thread; MultiStreamPipeline of 8 720p
+      streams on the fast engine (B3 at batch 8 and 2). Then a formatted
+      launch under torch.cuda.set_sync_debug_mode("error") (no host sync;
+      a plain one syncs), and readings: images/s and p50/p99 of formatted
+      against plain staging and of the int8-input against the uint8 engine,
+      in alternating turns, and each staging mode's device idle share;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -84,6 +102,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -183,9 +202,10 @@ B4B_KERNEL_SHAPES = (
 # then the eval path's shapes: the flip program decodes 2B images, B = 16 or
 # 64 (the {B/4, B} ladder of a TTA batch of 64), so batch 32 and 128 at the
 # map of every bucket (320 to 1024: maps 80 to 256), and the sparse heads at
-# the flip batch of bs64 @ 640. The first six are the parent's cases, on the
-# same inputs. tests/test_torch_decode_select.py plans every one of them on
-# the CPU.
+# the flip batch of bs64 @ 640; then the serving path's: K = 100 (the serving
+# `max_dets`) at the rungs 128, 32 and 8 of the `[serving]` engines. The first
+# six are the parent's cases, on the same inputs.
+# tests/test_torch_decode_select.py plans every one of them on the CPU.
 DECODE_KERNEL_CASES = (
     ("random 3*randn (32,160,160)", "random", (32, 160, 160), 200, False),
     ("sparse+plateaus (8,160,160)", "sparse", (8, 160, 160), 200, False),
@@ -204,6 +224,7 @@ DECODE_KERNEL_CASES = (
     *((f"eval flip batch ({b},{s // 4},{s // 4}), {s} bucket", "random", (b, s // 4, s // 4), 200, False)
       for b in (32, 128) for s in (320, 416, 512, 640, 800, 1024)),
     ("eval flip batch sparse+plateaus (128,160,160)", "sparse", (128, 160, 160), 200, False),
+    *((f"serving K=100 ({b},160,160)", "random", (b, 160, 160), 100, False) for b in (128, 32, 8)),
 )
 # B2's timed shapes beyond the main path's heads (bs32 @ 640, K = 200): one
 # 640 image (the flagship's heads of the first image), the 320 bucket at bs32
@@ -279,6 +300,25 @@ EVAL_RATE_IMAGES, EVAL_RATE_SIDES, EVAL_RATE_RUNS = 256, (256, 1024), 5
 # The input sizes of the eval path's B3 checks beside 640 (the TTA buckets the
 # flagship's 384-512 scenes take at scales 0.7 and 1.0), each at batch 128.
 EVAL_MBCONV_SIZES = (416, 512)
+# The serving phase (`[serving]`): engines of SERVING_BATCH images a launch
+# (the {B/4, B} ladder) at the serving decode profile (K = SERVING_MAX_DETS),
+# fed SERVING_IMAGES pre-sized frames from SERVING_THREADS threads in requests
+# of 1 to SERVING_MAX_REQUEST images, cut from SERVING_POOL painted frames;
+# the int8-input engine against the uint8 one on SERVING_INT8_IMAGES frames
+# (two full launches and a ragged tail on the small rung); readings in
+# SERVING_TURNS turns of each mode, in alternation.
+SERVING_BATCH, SERVING_MAX_DETS, SERVING_THREADS, SERVING_MAX_REQUEST = 128, 100, 4, 16
+SERVING_IMAGES, SERVING_POOL, SERVING_INT8_IMAGES, SERVING_TURNS = 512, 64, 276, 3
+# The router: ROUTER_IMAGES painted images with each side drawn from
+# ROUTER_SIDES, ROUTER_BATCH images a launch; the hot reload swaps in the
+# flagship's weights with every kernel scaled by 1 + RELOAD_NOISE * N(0, 1).
+ROUTER_IMAGES, ROUTER_SIDES, ROUTER_BATCH, RELOAD_NOISE = 24, (256, 1024), 16, 0.03
+# The multi-stream pipeline: STREAMS camera streams of STREAM_FRAMES frames
+# of STREAM_HW (720p: one (768, 1280) bucket), on the fast engine.
+STREAMS, STREAM_FRAMES, STREAM_HW = 8, 8, (720, 1280)
+# every result() and join() of the serving phase waits at most this long, so a
+# deadlock fails the run instead of hanging it
+SERVING_TIMEOUT_S = 120
 
 
 def log(msg: str) -> None:
@@ -494,6 +534,7 @@ def phase_build():
     so threads are enough)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from tpucenterface_torch import native
     from tpucenterface_torch.kernels import build
 
     def timed(name):
@@ -501,12 +542,19 @@ def phase_build():
         build.load(name)
         return time.perf_counter() - t0
 
+    def timed_stage():
+        t0 = time.perf_counter()
+        native.load()
+        return time.perf_counter() - t0
+
     names = ("decode", "mbconv", "nms", "planar", "planar_chain", "int8_conv", "int8_block", "int8_block_s1")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        stage = pool.submit(timed_stage)
         secs = list(pool.map(timed, names))
     each = ", ".join(f"csrc/{n}.cu {t:.1f} s" for n, t in zip(names, secs))
-    log(f"[build] {each}; all built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {each}; native/stage_ext.cpp (g++) {stage.result():.1f} s; all built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _fused_feats(hm, wh, off):
@@ -724,8 +772,9 @@ def phase_kernels_nms():
     from tpucenterface_torch.decode.fused_nms import NMS_TILE, sigmoid_pseudo_nms_fused, sigmoid_pseudo_nms_plain
 
     gen = torch.Generator().manual_seed(99)
+    # the serving phase's landmark engine launches rungs of 8 and 2 at 640
     cases = [(f"3*randn {shape}", 3.0 * torch.randn(*shape, generator=gen))
-             for shape in ((32, 160, 160), (1, 256, 256), (3, 33, 65))]
+             for shape in ((32, 160, 160), (1, 256, 256), (3, 33, 65), (8, 160, 160), (2, 160, 160))]
     cases.append(("constant map (2, 40, 40)", torch.full((2, 40, 40), 0.25)))
     cases = [(name, hm.cuda()) for name, hm in cases]
     # the head's own layout: channel 0 of a (B, H, W, 5) map, read through strides
@@ -1663,6 +1712,387 @@ def eval_throughput(det, tta, smi):
     log(f"[eval] profile of batched_detect_tta on the {len(imgs)} scenes: {json.dumps(prof)} on {smi}")
 
 
+# --------------------------------------------------------------------------- #
+# the serving phase: ServingEngine, ServingRouter, MultiStreamPipeline
+# --------------------------------------------------------------------------- #
+
+
+def serving_requests(pool, n_images, seed):
+    """Requests of 1 to SERVING_MAX_REQUEST images, `n_images` in all, each a
+    copy of frames of `pool` (uint8, pre-sized) in a scrambled order."""
+    rng = np.random.RandomState(seed)
+    reqs, o = [], 0
+    while o < n_images:
+        n = min(int(rng.randint(1, SERVING_MAX_REQUEST + 1)), n_images - o)
+        reqs.append(pool[(np.arange(o, o + n) * 7) % len(pool)])
+        o += n
+    return reqs
+
+
+def submit_all(eng, reqs, threads=SERVING_THREADS):
+    """Submit `reqs` to `eng` from `threads` threads, each its share as fast
+    as it can, and wait for every result: (results in request order, seconds
+    from the first submit to the last result)."""
+    futs, errors = [None] * len(reqs), []
+
+    def client(t):
+        try:
+            for j in range(t, len(reqs), threads):
+                futs[j] = eng.submit(reqs[j])
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=SERVING_TIMEOUT_S)
+    if errors or any(w.is_alive() for w in workers):
+        raise AssertionError(f"[serving] submitters failed or hung: {errors}")
+    results = [f.result(timeout=SERVING_TIMEOUT_S) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def _engine(det, **kw):
+    from tpucenterface_torch.runtime.serving import ServingEngine
+
+    size = det.config.default_size
+    return ServingEngine(det, (size, size), device_batch=SERVING_BATCH, max_dets=SERVING_MAX_DETS,
+                         score_thresh=0.05, **kw)
+
+
+def check_engine(name, det, reqs, per_launch, smi):
+    """One formatted-staging engine over `det` fed `reqs` from
+    SERVING_THREADS threads, with every launch counter set to 0 just before
+    and read just after: each kernel launched `per_launch` times a serving
+    launch, stats() agreeing with the launches counted, every launch staged
+    through pinned buffers; then each request against a direct
+    `detect_batch` of its images (FAST_MATCH_SHARE of the detections >=
+    BF16_FIRM matched, as the flip checks). Returns the launch counts."""
+    with _engine(det) as eng:
+        zero_launches()
+        results, wall = submit_all(eng, reqs)
+        launches = read_launches()
+        st = eng.stats()
+    want = launch_counts(**{k: v * st["launches"] for k, v in per_launch.items()})
+    n_img = sum(len(r) for r in reqs)
+    log(f"[serving] {name}: {len(reqs)} requests, {n_img} images from {SERVING_THREADS} threads in {wall:.3f} s; "
+        f"stats {json.dumps(st)}; kernel launches {launches} on {smi}")
+    if launches != want or st["requests"] != len(reqs) or st["images"] != n_img:
+        raise AssertionError(f"[serving] {name}: launches {launches}, wanted {want}; stats {st}")
+    if st["pinned_launches"] != st["launches"]:
+        raise AssertionError(f"[serving] {name}: {st['pinned_launches']} of {st['launches']} launches pinned-staged")
+    # the counts are read; what follows compares and launches outside the count
+    direct = [d for r in reqs for d in det.detect_batch(r, score_thresh=0.05)]
+    n, bad = count_unmatched([d for res in results for d in res], direct)
+    log(f"[serving] {name}: detections >= {BF16_FIRM} without a partner in a direct detect_batch of the same "
+        f"request within {BF16_BOX_ATOL} px and {BF16_SCORE_ATOL}: {bad} of {n}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[serving] {name}: {bad} of {n} detections unmatched")
+    return launches
+
+
+def check_launch_syncs(det, reqs):
+    """A serving launch enqueues its program without waiting for the device:
+    one launch of a formatted-staging engine (assembly, pinned staging,
+    program) under torch.cuda.set_sync_debug_mode("error") raises on any
+    synchronising call, while the same launch through the pageable "plain"
+    staging does synchronise (it waits for the work queued ahead)."""
+    for staging in ("formatted", "plain"):
+        with _engine(det, staging=staging) as eng:
+            group = [eng._make_request(r, None) for r in reqs]
+            eng._finalize(group, eng._launch_inner(group))  # build and warm the program
+            group = [eng._make_request(r, None) for r in reqs]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res, synced = eng._launch_inner(group), False
+            except RuntimeError as e:
+                if "synchroniz" not in str(e):
+                    raise
+                res, synced = None, True
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eng._finalize(group, res)
+        if synced != (staging == "plain"):
+            raise AssertionError(f"[serving] a {staging}-staging launch {'did' if synced else 'did not'} synchronise")
+    log(f"[serving] a formatted-staging launch of {sum(len(r) for r in reqs)} images ran with no host sync "
+        "(torch.cuda.set_sync_debug_mode('error')); a plain-staging one synchronised")
+
+
+def check_landmark_engine(size, smi):
+    """A landmark model (random weights from a seed, the fused sigmoid +
+    pseudo-NMS kernel) at `size` through an engine of 8 images a launch
+    ({2, 8}): a launch of each rung, one B1 launch each, against a direct
+    detect_batch."""
+    from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig, ModelConfig
+    from tpucenterface_torch.runtime.serving import ServingEngine
+
+    lm_det = Detector(config=DetectorConfig(model=ModelConfig(with_landmarks=True),
+                                            decode=DecodeConfig(use_pallas=True), default_size=size), seed=11)
+    imgs, _ = paint_batch(51, 10, (size, size))
+    reqs = [imgs[:8], imgs[8:]]
+    eng = ServingEngine(lm_det, (size, size), device_batch=8, score_thresh=0.0)
+    zero_launches()
+    got = list(eng.map_stream((r, None) for r in reqs))
+    launches = read_launches()
+    st = eng.stats()
+    log(f"[serving] landmark engine, requests of 8 and 2 images at {size}: stats {json.dumps(st)}; "
+        f"kernel launches {launches} on {smi}")
+    if launches != launch_counts(sigmoid_pseudo_nms_fused=2) or st["launches"] != 2 or st["pad_images"] != 0:
+        raise AssertionError(f"[serving] landmark engine: launches {launches}, stats {st}")
+    n, bad = count_unmatched([d for res in got for d in res],
+                             [d for r in reqs for d in lm_det.detect_batch(r, score_thresh=0.0)], firm=0.0)
+    log(f"[serving] landmark engine: detections (boxes and points) without a partner in a direct detect_batch: "
+        f"{bad} of {n}")
+    if any(d.landmarks is None or d.landmarks.shape != (len(d.scores), 5, 2) for res in got for d in res):
+        raise AssertionError("[serving] landmark engine: the landmarks are lost")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[serving] landmark engine: {bad} of {n} detections unmatched")
+    return launches
+
+
+def check_int8_engine(qdet, pool, smi):
+    """The int8-input engine (host table staging, the int8-input program) on
+    the quantized B7-route detector against the uint8 engine on the same
+    detector, both through map_stream on the same requests (two full
+    launches and a ragged tail on the small rung): bit-identical detections;
+    B7 ten launches and B2 one a serving launch; the native table staging
+    equal to the numpy `apply_stem_lut` byte for byte. Returns the counts."""
+    from tpucenterface_torch import native
+    from tpucenterface_torch.quant.engine import apply_stem_lut
+
+    reqs = serving_requests(pool, SERVING_INT8_IMAGES, seed=52)
+    u8, i8 = _engine(qdet), _engine(qdet, int8_input=True)
+    programs = []
+    orig = i8._fn
+    i8._fn = lambda b, **kw: (programs.append((b, kw["int8_in"])), orig(b, **kw))[1]
+    zero_launches()
+    ref = list(u8.map_stream((r, None) for r in reqs))
+    got = list(i8.map_stream((r, None) for r in reqs))
+    launches = read_launches()
+    n_launch = u8.stats()["launches"] + i8.stats()["launches"]
+    log(f"[serving] int8-input engine against the uint8 engine, {len(reqs)} requests, {SERVING_INT8_IMAGES} images, "
+        f"launches {programs}: stats {json.dumps(i8.stats())}; kernel launches {launches} on {smi}")
+    want = launch_counts(decode_feats_fused=n_launch, int8_block_s1=len(QUANT_S1_BLOCKS) * n_launch)
+    if launches != want or any(not i8_in for _, i8_in in programs):
+        raise AssertionError(f"[serving] int8 engines: launches {launches}, wanted {want}; programs {programs}")
+    differ = sum(a.boxes.tobytes() != b.boxes.tobytes() or a.scores.tobytes() != b.scores.tobytes()
+                 for ra, rb in zip(ref, got) for a, b in zip(ra, rb))
+    lut = qdet.stem_input_lut()
+    staged = native.stem_lut_apply(pool[:16], lut)
+    same_lut = staged.tobytes() == apply_stem_lut(pool[:16], lut).tobytes()
+    log(f"[serving] int8-input engine: {differ} of {SERVING_INT8_IMAGES} images differ from the uint8 engine's "
+        f"(bit for bit); native table staging equal to the numpy apply_stem_lut: {same_lut}")
+    if differ or not same_lut or sum(len(r) for r in got) != SERVING_INT8_IMAGES:
+        raise AssertionError("[serving] the int8-input engine is not bit-identical to the uint8 engine")
+    return launches
+
+
+def _perturbed_flagship(seed):
+    from tpucenterface_torch.weights.io import load_safetensors
+
+    variables = load_safetensors(FLAGSHIP)
+    rng = np.random.RandomState(seed)
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "kernel":
+                tree[k] = (v * (1.0 + RELOAD_NOISE * rng.standard_normal(v.shape))).astype(np.float32)
+
+    walk(variables["params"])
+    return variables
+
+
+def check_router(cfg, det, smi):
+    """ServingRouter on painted images of mixed sizes (each side from
+    ROUTER_SIDES, so many buckets), module forward, with every launch counter
+    set to 0 just before and read just after: each result against `detect`
+    of its image; then the hot reload: `reload_weights` from another thread
+    while a second wave is in flight; every future resolves without error,
+    and a third wave, after the swap, matches a fresh Detector on the new
+    weights. Returns the launch counts."""
+    from tpucenterface_torch import Detector
+    from tpucenterface_torch.runtime.serving import ServingRouter
+
+    rng = np.random.RandomState(53)
+    imgs = [paint_scene(rng, tuple(int(v) for v in rng.randint(ROUTER_SIDES[0], ROUTER_SIDES[1] + 1, 2)),
+                        int(rng.randint(2, 5)))[0] for _ in range(ROUTER_IMAGES)]
+    new_vars = _perturbed_flagship(54)
+    det_r = Detector.from_safetensors(FLAGSHIP, cfg)
+    errors = []
+
+    def reload():
+        try:
+            det_r.reload_weights(variables=new_vars)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    with ServingRouter(det_r, device_batch=ROUTER_BATCH, max_dets=SERVING_MAX_DETS, score_thresh=0.05) as router:
+        zero_launches()
+        first = [f.result(timeout=SERVING_TIMEOUT_S) for f in [router.submit(im) for im in imgs]]
+        swapper = threading.Thread(target=reload)
+        swapper.start()
+        during = [router.submit(im) for _ in range(3) for im in imgs]
+        swapper.join(timeout=SERVING_TIMEOUT_S)
+        during = [f.result(timeout=SERVING_TIMEOUT_S) for f in during]
+        after = [f.result(timeout=SERVING_TIMEOUT_S) for f in [router.submit(im) for im in imgs]]
+        launches = read_launches()
+        st = router.stats()
+    log(f"[serving] router: {len(imgs)} images of sides {ROUTER_SIDES[0]}-{ROUTER_SIDES[1]} in "
+        f"{len(st['buckets'])} buckets, three waves around a hot reload: requests {st['requests']}, launches "
+        f"{st['launches']} ({st['pinned_launches']} pinned-staged), pad {st['pad_images']}; kernel launches "
+        f"{launches} on {smi}")
+    if errors or swapper.is_alive() or det_r.weights_version != 1:
+        raise AssertionError(f"[serving] router: the hot reload failed: {errors}")
+    if launches != launch_counts(decode_feats_fused=st["launches"]) or st["pinned_launches"] != st["launches"]:
+        raise AssertionError(f"[serving] router: launches {launches}, stats {st}")
+    for d in during:
+        if not (np.isfinite(d.boxes).all() and np.isfinite(d.scores).all()) or d.boxes.shape != (len(d.scores), 4):
+            raise AssertionError("[serving] router: a bad result in flight across the reload")
+    fresh = Detector(variables=new_vars, config=cfg)
+    checks = {"before the reload / detect": count_unmatched(first, [det.detect(im, score_thresh=0.05) for im in imgs]),
+              "after the reload / a fresh Detector on the new weights":
+                  count_unmatched(after, [fresh.detect(im, score_thresh=0.05) for im in imgs]),
+              "after / before the reload": count_unmatched(after, first)}
+    log("[serving] router, detections >= 0.1 without a partner within 2 px and 0.03: " +
+        "; ".join(f"{k} {bad} of {n}" for k, (n, bad) in checks.items()))
+    for key in ("before the reload / detect", "after the reload / a fresh Detector on the new weights"):
+        n, bad = checks[key]
+        if n < 50 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+            raise AssertionError(f"[serving] router {key}: {bad} of {n} unmatched")
+    if checks["after / before the reload"][1] == 0:
+        raise AssertionError("[serving] router: the reload changed no detection")
+    return launches
+
+
+def check_multistream(det_fast, smi):
+    """MultiStreamPipeline on the fast engine: STREAMS streams of
+    STREAM_FRAMES painted 720p frames (one (768, 1280) bucket, launches on
+    the rungs of STREAMS and STREAMS // 4 images), with every launch counter
+    set to 0 just before and read just after: per-stream order kept, each
+    frame's detections against `detect` of it. Returns the launch counts."""
+    from tpucenterface_torch.runtime.video import MultiStreamPipeline
+
+    distinct = [paint_scene(np.random.RandomState(60 + i), STREAM_HW, 5) for i in range(2 * STREAMS)]
+    streams = [[distinct[(s * 3 + f) % len(distinct)][0].copy() for f in range(STREAM_FRAMES)]
+               for s in range(STREAMS)]
+    pipe = MultiStreamPipeline(det_fast, n_streams=STREAMS, score_thresh=0.05)
+    out = {s: [] for s in range(STREAMS)}
+    errors = []
+
+    def consume():  # in a thread of its own: the pipeline waits on futures with no timeout
+        try:
+            for si, frame, dets in pipe.run(streams):
+                out[si].append((frame, dets))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    consumer = threading.Thread(target=consume, daemon=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    consumer.start()
+    consumer.join(timeout=SERVING_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if consumer.is_alive() or errors:
+        raise AssertionError(f"[serving] multi-stream pipeline failed or hung: {errors}")
+    launches = read_launches()
+    n_kernel_blocks = len(det_fast._engine.kernel_blocks(det_fast.config.default_size))
+    serving_launches = launches["decode_feats_fused"]
+    log(f"[serving] multi-stream pipeline, {STREAMS} streams x {STREAM_FRAMES} frames of {STREAM_HW[1]}x"
+        f"{STREAM_HW[0]}, fast engine: {serving_launches} launches in {wall:.3f} s; kernel launches {launches} on {smi}")
+    if launches != launch_counts(decode_feats_fused=serving_launches, fused_mbconv=n_kernel_blocks * serving_launches):
+        raise AssertionError(f"[serving] multi-stream: launches {launches}")
+    for s in range(STREAMS):
+        if len(out[s]) != STREAM_FRAMES or any(a is not b for (a, _), b in zip(out[s], streams[s])):
+            raise AssertionError(f"[serving] multi-stream: stream {s} out of order")
+    ref = {i: det_fast.detect(img, score_thresh=0.05) for i, (img, _) in enumerate(distinct)}
+    got = [d for s in range(STREAMS) for _, d in out[s]]
+    want = [ref[(s * 3 + f) % len(distinct)] for s in range(STREAMS) for f in range(STREAM_FRAMES)]
+    n, bad = count_unmatched(got, want)
+    log(f"[serving] multi-stream: detections >= {BF16_FIRM} without a partner in detect of the same frame: "
+        f"{bad} of {n}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[serving] multi-stream: {bad} of {n} detections unmatched")
+    return launches
+
+
+def phase_serving(cfg, det, det_fast, qdet, smi):
+    """Path h, the serving runtime (`runtime/serving.py`, `runtime/video.py`)
+    on the flagship weights at full width, each sub-path with every launch
+    counter set to 0 just before and read just after:
+    - ServingEngine (SERVING_BATCH images a launch, K = SERVING_MAX_DETS,
+      "formatted" staging) on the module forward and on the fast engine,
+      SERVING_IMAGES pre-sized 640 frames from SERVING_THREADS threads;
+    - a landmark model's engine (B1 at its rungs of 8 and 2);
+    - the int8-input engine against the uint8 one on the quantized B7 route;
+    - ServingRouter on mixed sizes with a hot reload;
+    - MultiStreamPipeline of STREAMS 720p streams on the fast engine.
+    After the counts are read: a formatted launch with no host sync, then
+    the readings (`serving_readings`). Returns the summed launch counts."""
+    size = det.config.default_size
+    pool, _ = paint_batch(50, SERVING_POOL, (size, size))
+    reqs = serving_requests(pool, SERVING_IMAGES, seed=55)
+    n_fast = len(det_fast._engine.kernel_blocks(size))
+    paths = [check_engine("module forward", det, reqs, {"decode_feats_fused": 1}, smi),
+             check_engine("fast engine", det_fast, reqs, {"decode_feats_fused": 1, "fused_mbconv": n_fast}, smi),
+             check_landmark_engine(size, smi),
+             check_int8_engine(qdet, pool, smi),
+             check_router(cfg, det, smi),
+             check_multistream(det_fast, smi)]
+    launches = {name: sum(p[name] for p in paths) for name in paths[0]}
+    check_launch_syncs(det, reqs[:8])
+    check_launch_syncs(det_fast, reqs[:8])
+    serving_readings(det, qdet, reqs, smi)
+    return launches
+
+
+def _turn(det, reqs, **kw):
+    """One timed turn: a fresh engine fed `reqs` from SERVING_THREADS
+    threads; (images/s from the first submit to the last result, stats)."""
+    with _engine(det, **kw) as eng:
+        _, wall = submit_all(eng, reqs)
+        st = eng.stats()
+    return sum(len(r) for r in reqs) / wall, st
+
+
+def serving_readings(det, qdet, reqs, smi):
+    """Readings, not claims: images/s and stats() p50/p99 of SERVING_TURNS
+    turns of each of two modes, in alternation after a warm-up turn of each
+    (formatted and plain staging on the module forward; the uint8 and the
+    int8-input engine on the quantized B7 route, formatted staging), and
+    the device idle share in one torch.profiler window of a turn of each
+    staging mode."""
+    pairs = (("staging", det, {"staging": "formatted"}, {"staging": "plain"}),
+             ("int8 input (B7 route)", qdet, {}, {"int8_input": True}))
+    out = {}
+    for what, d, a, b in pairs:
+        _turn(d, reqs, **a)
+        _turn(d, reqs, **b)
+        runs = {0: [], 1: []}
+        for _ in range(SERVING_TURNS):
+            for k, kw in ((0, a), (1, b)):
+                runs[k].append(_turn(d, reqs, **kw))
+        for k, kw in ((0, a), (1, b)):
+            rates = [r for r, _ in runs[k]]
+            out[f"{what} {json.dumps(kw)}"] = {
+                "img_s": rates, "img_s_median": float(np.median(rates)), "img_s_min": min(rates),
+                "img_s_max": max(rates), "p50_ms": [st["latency_ms_p50"] for _, st in runs[k]],
+                "p99_ms": [st["latency_ms_p99"] for _, st in runs[k]],
+                "launches": [st["launches"] for _, st in runs[k]],
+                "pinned_launches": [st["pinned_launches"] for _, st in runs[k]],
+            }
+    for staging in ("formatted", "plain"):
+        prof = device_profile(lambda: _turn(det, reqs, staging=staging), iters=1)
+        out[f"profile staging={staging}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
+        out[f"profile staging={staging}"]["top_device_ms"] = dict(list(prof["top_device_ms"].items())[:6])
+    log(f"[serving] readings, {sum(len(r) for r in reqs)} images in {len(reqs)} requests from {SERVING_THREADS} "
+        f"threads a turn, {SERVING_BATCH} images a launch, K = {SERVING_MAX_DETS}: {json.dumps(out)} on {smi}")
+
+
 def normalize_raw(det, imgs, dev):
     """The identity-path input of `det` for uint8 images at its size."""
     from tpucenterface_torch.preprocess import normalize_images
@@ -2105,6 +2535,9 @@ def main() -> int:
     if not set(MBCONV_BLOCKS_640) <= set(large_dets[1]._engine.kernel_blocks(640)):
         raise AssertionError(f"[kernels] the large preset's blocks at 640: {large_dets[1]._engine.kernel_blocks(640)}")
     more_inputs["bs32@640 large preset"] = mbconv_block_inputs(large_dets[0], x_large)
+    # the rungs of the serving phase's multi-stream pipeline (8 streams: 8 and 2)
+    for b in (8, 2):
+        more_inputs[f"bs{b}@640 serving rung"] = mbconv_block_inputs(det, x[:b].contiguous())
     imgs320, _ = paint_batch(9, 32, (320, 320))
     with torch.inference_mode():
         x320 = normalize_images(torch.from_numpy(imgs320).to("cuda"), det.config.preprocess, raw=True)
@@ -2141,7 +2574,8 @@ def main() -> int:
              phase_main_planar(det_planar, det_planar320, det_planar_cpu, det_f32, d640, x, det_feats),
              phase_main_quant(quant_dets, det, det_f32, d640, x, det_feats),
              phase_eval(det, det_fast, det_cpu, smi),
-             phase_main_large(large_dets, feats_imgs, x_large)]
+             phase_main_large(large_dets, feats_imgs, x_large),
+             phase_serving(cfg, det, det_fast, quant_dets["b7"], smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

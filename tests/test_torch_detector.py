@@ -507,9 +507,14 @@ def test_results_to_detections_lo_hi(jax_plain):
 
 
 def test_programs_refuse_what_they_cannot_run():
+    """The int8-input program needs the identity path and a quantized
+    stem-baked detector (`tpucenterface/detector.py:589-596`); the flip
+    program a centered letterbox."""
     det = T.Detector(config=T.DetectorConfig(default_size=PSIZE), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8-input"):
+    with pytest.raises(ValueError, match="quantize"):
         det._batch_fn(2, (PSIZE, PSIZE), PSIZE, identity=True, int8_in=True)
+    with pytest.raises(ValueError, match="identity"):
+        det._batch_fn(2, (PSIZE, PSIZE), PSIZE, identity=False, int8_in=True)
     uncentered = T.Detector(config=T.DetectorConfig(preprocess=T.PreprocessConfig(center=False)), device="cpu")
     with pytest.raises(ValueError, match="centered letterbox"):
         uncentered._batch_flip_fn(2, (PSIZE, PSIZE), PSIZE)

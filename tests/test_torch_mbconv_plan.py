@@ -6,8 +6,9 @@ The kernel runs only on the card; what surrounds it is checked here:
   every output channel in one block's rectangles, one group of them at the
   model's shapes) within the shared memory a block may use, for every block
   that `model/fast_forward.py::kernel_blocks` sends to the kernel at every
-  bucket at batch 1, 32 and 128, of the default model and of the `large`
-  preset, and at `chip_smoke.py`'s ragged shapes; so does every candidate
+  bucket at batch 1, 32 and 128, of the default model (also at batch 2 and
+  8, the serving rungs) and of the `large` preset, and at `chip_smoke.py`'s
+  ragged shapes; so does every candidate
   of `fused_mbconv_plans`;
 - the planner refuses what the kernel cannot run;
 - `pack_fused_mbconv` / `unpack_fused_mbconv` round-trip bit for bit, and the
@@ -73,7 +74,9 @@ def _covers(plan: fm.MBConvPlan, b, h, w, cin, ce, cout, expand):
     assert lay.nchunks * plan.ck >= ce and lay.cin_pad >= cin
 
 
-@pytest.mark.parametrize("batch", [1, 32, 128])  # 128: the flip program of a TTA batch of 64
+# 128: the flip program of a TTA batch of 64; 2 and 8: the rungs of an
+# eight-stream serving pipeline (chip_smoke.py's `[serving]`)
+@pytest.mark.parametrize("batch", [1, 2, 8, 32, 128])
 @pytest.mark.parametrize("input_h", [640, 320, 800, 1024, 416, 512])
 def test_plan_covers_every_engine_block(input_h, batch):
     shapes = _engine_shapes(input_h)

@@ -2,9 +2,10 @@
 
 Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
 `from_safetensors`, `_decode`, `_forward`, `results_to_detections`,
-`_identity_for`, `_single_fn`, `_batch_fn`, `_batch_flip_fn`,
-`reload_weights`, `weights_version`, `detect`, `detect_batch`, `warmup`,
-`quantize`, `dequantize`, `stem_input_lut`) and `_export_scales`:
+`_identity_for`, `_get_or_build`, `_single_fn`, `_batch_fn`,
+`_batch_fn_auto`, `_batch_flip_fn`, `reload_weights`, `weights_version`,
+`detect`, `detect_batch`, `warmup`, `quantize`, `dequantize`,
+`stem_input_lut`), `stage_inputs` and `_export_scales`:
 
     host:   zero-pad the frame to a shape bucket, copy to the device
     device: letterbox+normalize -> backbone -> neck -> heads -> decode
@@ -37,17 +38,28 @@ calibrated on uint8 frames or installed from persisted scales;
 residual blocks through the int8 block kernel (`ops.int8_block`).
 `dequantize()` returns to the bf16 forward.
 
-Not ported yet: `from_torch_pth`, the int8-input program
-(`_batch_fn(int8_in=True)` raises `NotImplementedError`), `_batch_fn_auto`
-and `stage_inputs` (XLA's AUTO layouts; the port has no counterpart), the
-space-to-depth stem, and of `quantize` the QAT and AdaRound fine-tuning and
-the installation of fine-tuned parameters (`qat_steps`, `adaround_steps`,
-`quant_params` raise `NotImplementedError`).
+Swaps are atomic, as in the JAX Detector: `reload_weights`, `quantize` and
+`dequantize` build their new state first, then assign every field, bump
+`weights_version` and clear the program cache under `_fn_lock`. A program
+is built from one snapshot of the weights and forward (`_Generation`) and
+runs wholly on it, whatever swap follows; the cache keys on
+`weights_version` (`_get_or_build`).
+
+Input staging (`_batch_fn_auto`, `stage_inputs`): where the JAX Detector
+stages a launch into XLA's preferred input layouts, the port stages it
+through a ring of reused pinned host buffers and a copy stream
+(`PinnedStaging`), so that the copy of launch N+1 runs beside program N.
+
+Not ported yet: `from_torch_pth`, the space-to-depth stem, and of `quantize`
+the QAT and AdaRound fine-tuning and the installation of fine-tuned
+parameters (`qat_steps`, `adaround_steps`, `quant_params` raise
+`NotImplementedError`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -93,6 +105,122 @@ def _export_scales(eng: QuantEngine) -> Dict[str, Any]:
     out["cfg:weight_bits"] = eng.weight_bits
     out["cfg:int8_dw"] = int(eng.int8_dw)
     return out
+
+
+# Pinned host slots of a staging ring: a serving engine keeps `inflight`
+# launches unfetched (2 by default), and a slot may be written again only
+# once the copy that read it has completed, so inflight + 1 slots let the
+# assembly of the next launch go on without waiting.
+STAGING_SLOTS = 3
+
+
+class PinnedStaging:
+    """The staging format of one launch signature (batch, padded_hw) on a
+    CUDA device: a ring of reused pinned host buffers (uint8 images, int32
+    hws), a copy stream, and per slot the event recorded after its last
+    host-to-device copy.
+
+    `stage(fill)` takes the next slot, waits until the copy that last read
+    it has completed, lets `fill(imgs, hws)` write the launch into the
+    slot's numpy views, copies both buffers to the device with
+    `non_blocking=True` on the copy stream, and makes the caller's stream
+    wait for the copy. The device tensors are allocated on the copy stream
+    and `record_stream`'d to the caller's, so the caching allocator hands
+    their memory out again only after the caller's work queued until they
+    are freed. The caller's stream thus runs the program as soon as its
+    inputs have arrived, while the copy of the next launch runs beside it.
+    A pinned allocation that fails raises. Thread-safe: one slot is taken,
+    filled and issued at a time."""
+
+    def __init__(self, batch: int, padded_hw: Tuple[int, int], device, slots: int = STAGING_SLOTS):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"pinned staging is for a CUDA device, not {self.device}")
+        if slots < 2:
+            raise ValueError(f"a staging ring needs at least 2 slots, got {slots}")
+        self.shape = (batch, *padded_hw, 3)
+        self.stream = torch.cuda.Stream(device=self.device)
+        self._imgs = [torch.empty(self.shape, dtype=torch.uint8, pin_memory=True) for _ in range(slots)]
+        self._hws = [torch.empty((batch, 2), dtype=torch.int32, pin_memory=True) for _ in range(slots)]
+        self._views = [(i.numpy(), h.numpy()) for i, h in zip(self._imgs, self._hws)]
+        self._copied: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def stage(self, fill) -> Tuple[torch.Tensor, torch.Tensor]:
+        with self._lock:
+            k = self._next
+            self._next = (k + 1) % len(self._imgs)
+            if self._copied[k] is not None:
+                self._copied[k].synchronize()  # the slot's last copy has read it
+            fill(*self._views[k])
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.stream):
+                dev_im = torch.empty(self.shape, dtype=torch.uint8, device=self.device)
+                dev_hw = torch.empty(self._hws[k].shape, dtype=torch.int32, device=self.device)
+                dev_im.copy_(self._imgs[k], non_blocking=True)
+                dev_hw.copy_(self._hws[k], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            compute.wait_event(done)
+            dev_im.record_stream(compute)
+            dev_hw.record_stream(compute)
+            self._copied[k] = done
+        return dev_im, dev_hw
+
+
+def stage_inputs(fmt: Optional[PinnedStaging], imgs: np.ndarray, hws: np.ndarray, device=None):
+    """Stage a (images, hws) launch for a `_batch_fn_auto` program: through
+    the program's pinned staging ring when `fmt` is one, else the pageable
+    `.to(device)` copy of `detect_batch` (on a CUDA device it waits for the
+    work queued ahead on the stream). The one place where a launch's inputs
+    reach the device, for `detect_batch` and `ServingEngine` alike."""
+    if fmt is None:
+        dev = resolve_device(device)
+        return (torch.from_numpy(np.ascontiguousarray(imgs)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(hws, np.int32)).to(dev))
+    imgs = np.asarray(imgs)
+    hws = np.asarray(hws, np.int32)
+    if imgs.shape != fmt.shape or imgs.dtype != np.uint8 or hws.shape != (fmt.shape[0], 2):
+        raise ValueError(f"staging takes uint8 {fmt.shape} and hws ({fmt.shape[0]}, 2), got "
+                         f"{imgs.dtype} {imgs.shape} and {hws.shape}")
+
+    def fill(im, hw):
+        np.copyto(im, imgs)
+        np.copyto(hw, hws)
+
+    return fmt.stage(fill)
+
+
+def _decode_with(cfg, feats: Dict[str, torch.Tensor], max_dets: Optional[int] = None):
+    """`Detector._decode` under the decode config `cfg`."""
+    if max_dets is not None and max_dets != cfg.max_dets:
+        cfg = dataclasses.replace(cfg, max_dets=max_dets)
+    if cfg.use_pallas and "lm" not in feats:
+        boxes, scores, _ = decode_feats_fused(feats, cfg)
+        return boxes, scores, None
+    peaks = sigmoid_pseudo_nms_fused(feats["hm"][..., 0]) if cfg.use_pallas else None
+    boxes, scores, idx = decode_feats_with_idx(feats, cfg, peaks=peaks)
+    lm = decode_landmarks(feats, idx, cfg) if "lm" in feats else None
+    return boxes, scores, lm
+
+
+class _Generation(NamedTuple):
+    """One generation of a Detector's weights and forward, as one swap left
+    them: what a program built at `version` runs, whatever swap follows."""
+
+    version: int
+    config: DetectorConfig
+    model: Any
+    engine: Any
+    quant: Optional[QuantEngine]
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.quant is not None:
+            return self.quant(x)
+        if self.engine is not None:
+            return self.engine(x)
+        return self.model(x)
 
 
 class Detections(NamedTuple):
@@ -160,9 +288,17 @@ class Detector:
         self._quant: Optional[QuantEngine] = None  # set by quantize()
         self._stem_lut: Optional[np.ndarray] = None
         # bumped on every weight or forward swap (reload_weights, quantize,
-        # dequantize); callers that cache anything derived from the weights
-        # key on it
+        # dequantize); the program cache and callers that cache anything
+        # derived from the weights key on it
         self.weights_version = 0
+        # every swap assigns its fields, bumps the version and clears the
+        # program cache under this lock; programs are built from a snapshot
+        # taken under it (`_get_or_build`)
+        self._fn_lock = threading.Lock()
+        self._fn_cache: Dict[Tuple, Any] = {}
+        # pinned staging rings by (batch, padded_hw, slots): they hold no
+        # weights, so they outlive swaps
+        self._staging: Dict[Tuple, PinnedStaging] = {}
 
     @classmethod
     def from_safetensors(
@@ -175,12 +311,14 @@ class Detector:
         variables: Optional[Dict[str, Any]] = None,
         safetensors_path: Optional[str] = None,
     ) -> None:
-        """Swap the model weights. The new weights go through the same
-        construction as `__init__` (BatchNorm fold, head fusion, engine
-        build), so an engine's own block weights are rebuilt with the
-        network. An active int8 forward is dropped: quantize() again for the
-        new weights. Not synchronised with a detect call running in another
-        thread."""
+        """Swap the model weights (a rolling update under live serving).
+        The new weights go through the same construction as `__init__`
+        (BatchNorm fold, head fusion, engine build), so an engine's own block
+        weights are rebuilt with the network; then every field is assigned,
+        the version bumped and the program cache cleared under `_fn_lock`.
+        Programs built before the swap keep running on the old weights; every
+        program built after it runs on the new. An active int8 forward is
+        dropped: quantize() again for the new weights."""
         if safetensors_path is not None:
             variables = load_safetensors(safetensors_path)
         elif variables is None:
@@ -191,10 +329,12 @@ class Detector:
             device=self.device,
             fold_bn=self._init_fold_bn,
         )
-        self.variables, self.config = fresh.variables, fresh.config
-        self.model, self._engine = fresh.model, fresh._engine
-        self._quant = None
-        self.weights_version += 1
+        with self._fn_lock:
+            self.variables, self.config = fresh.variables, fresh.config
+            self.model, self._engine = fresh.model, fresh._engine
+            self._quant = None
+            self.weights_version += 1
+            self._fn_cache.clear()
 
     # ------------------------------------------------------------------ #
     # the int8 forward
@@ -261,15 +401,19 @@ class Detector:
             else:
                 raise ValueError("pass calib_images (uint8), calib_batches, or scales")
             eng.calibrate(xs, percentile=calib_percentile)
-        self._quant = eng
-        self.weights_version += 1
+        with self._fn_lock:
+            self._quant = eng
+            self.weights_version += 1
+            self._fn_cache.clear()  # programs rebuild on the int8 forward
         return _export_scales(eng)
 
     def dequantize(self) -> None:
         """Return to the bf16 forward."""
-        if self._quant is not None:
-            self._quant = None
-            self.weights_version += 1
+        with self._fn_lock:
+            if self._quant is not None:
+                self._quant = None
+                self.weights_version += 1
+                self._fn_cache.clear()
 
     def stem_input_lut(self) -> np.ndarray:
         """(256, 3) int8 table of the stem's int8 input for each uint8 pixel
@@ -293,23 +437,36 @@ class Detector:
         landmark head takes the fused sigmoid + pseudo-NMS kernel for the
         dense stage ahead of the reference top-K and gathers (bit-equal to
         the reference decode)."""
-        cfg = self.config.decode
-        if max_dets is not None and max_dets != cfg.max_dets:
-            cfg = dataclasses.replace(cfg, max_dets=max_dets)
-        if cfg.use_pallas and "lm" not in feats:
-            boxes, scores, _ = decode_feats_fused(feats, cfg)
-            return boxes, scores, None
-        peaks = sigmoid_pseudo_nms_fused(feats["hm"][..., 0]) if cfg.use_pallas else None
-        boxes, scores, idx = decode_feats_with_idx(feats, cfg, peaks=peaks)
-        lm = decode_landmarks(feats, idx, cfg) if "lm" in feats else None
-        return boxes, scores, lm
+        return _decode_with(self.config.decode, feats, max_dets)
+
+    def _generation(self) -> _Generation:
+        """The current weights and forward, read together under `_fn_lock`."""
+        with self._fn_lock:
+            return _Generation(self.weights_version, self.config, self.model, self._engine, self._quant)
 
     def _forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if self._quant is not None:
-            return self._quant(x)
-        if self._engine is not None:
-            return self._engine(x)
-        return self.model(x)
+        """The current forward (int8 engine, fast or planar engine, or the
+        module network) on a normalized NHWC batch."""
+        return self._generation().forward(x)
+
+    def _get_or_build(self, key: Tuple, builder):
+        """Program-cache access: read under the lock, build outside it, insert
+        with setdefault under it, so that concurrent builders converge on one
+        program. The key carries the `weights_version` of the snapshot that
+        `builder(generation)` builds from, and a program built from a
+        generation that a swap has already replaced is returned to its caller
+        but not cached, so no entry of an old generation stays reachable."""
+        gen = self._generation()
+        key = key + (gen.version,)
+        with self._fn_lock:
+            fn = self._fn_cache.get(key)
+        if fn is not None:
+            return fn
+        run = builder(gen)
+        with self._fn_lock:
+            if self.weights_version != gen.version:
+                return run
+            return self._fn_cache.setdefault(key, run)
 
     def _identity_for(self, padded_hw, size: int, hws) -> bool:
         """True when every image in the call is exactly the model size, so
@@ -337,19 +494,62 @@ class Detector:
         return out
 
     # ------------------------------------------------------------------ #
-    # programs: one per signature, as the JAX Detector's jitted ones
+    # programs: one per signature and weights generation, as the JAX
+    # Detector's jitted ones
     # ------------------------------------------------------------------ #
+
+    def _build_batch(self, gen: _Generation, batch: int, size: int, identity: bool,
+                     max_dets: Optional[int], int8_in: bool):
+        """The batch program of `gen` (see `_batch_fn`): a closure over that
+        generation's config and forward, never over `self`'s fields."""
+        cfg = gen.config
+        if int8_in:
+            if not identity:
+                raise ValueError("int8_in requires the identity path")
+            if gen.quant is None or not cfg.model.stem_preprocess:
+                raise ValueError(
+                    "int8_in requires a quantize()d detector with the stem-baked preprocess (stem_preprocess=True)"
+                )
+        raw = cfg.model.stem_preprocess
+        pp = cfg.preprocess
+        dev = self.device
+
+        def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
+            with torch.inference_mode():
+                if int8_in:
+                    # already quantized through the stem's table on the host;
+                    # the engine's stem takes int8 as it is (QuantEngine._conv)
+                    x = imgs_u8
+                    scales = torch.ones((batch,), dtype=torch.float32, device=dev)
+                    pads = torch.zeros((batch, 2), dtype=torch.float32, device=dev)
+                elif identity:
+                    x = normalize_images(imgs_u8, pp, raw=raw)
+                    scales = torch.ones((batch,), dtype=torch.float32, device=dev)
+                    pads = torch.zeros((batch, 2), dtype=torch.float32, device=dev)
+                else:
+                    x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
+                boxes, scores, lm = _decode_with(cfg.decode, gen.forward(x), max_dets)
+                boxes = boxes_to_original(boxes, scales, pads, hws)
+                if lm is None:
+                    return boxes, scores
+                return boxes, scores, landmarks_to_original(lm, scales, pads, hws)
+
+        return run
 
     def _single_fn(self, padded_hw: Tuple[int, int], size: int, identity: bool = False):
         """The one-image program: (uint8 (Hp, Wp, 3), hw (2,) int32) device
         tensors -> boxes (K, 4), scores (K,)[, landmarks (K, 5, 2)] in
         original-image pixels: the batch program of one image."""
-        batch = self._batch_fn(1, padded_hw, size, identity=identity)
 
-        def run(img_u8: torch.Tensor, hw: torch.Tensor):
-            return tuple(r[0] for r in batch(img_u8[None], hw[None]))
+        def build(gen):
+            batch = self._build_batch(gen, 1, size, identity, None, False)
 
-        return run
+            def run(img_u8: torch.Tensor, hw: torch.Tensor):
+                return tuple(r[0] for r in batch(img_u8[None], hw[None]))
+
+            return run
+
+        return self._get_or_build(("single", tuple(padded_hw), size, identity), build)
 
     def _batch_fn(
         self,
@@ -363,27 +563,51 @@ class Detector:
         """The batch program: ((B, Hp, Wp, 3) uint8, (B, 2) int32) device
         tensors -> boxes (B, K, 4), scores (B, K)[, landmarks (B, K, 5, 2)]
         in original-image pixels, K = min(max_dets or DecodeConfig.max_dets,
-        H*W) of the head maps."""
-        if int8_in:
-            raise NotImplementedError("the port has no int8-input program yet")
-        raw = self.config.model.stem_preprocess
-        pp = self.config.preprocess
+        H*W) of the head maps.
 
-        def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
-            with torch.inference_mode():
-                if identity:
-                    x = normalize_images(imgs_u8, pp, raw=raw)
-                    scales = torch.ones((batch,), dtype=torch.float32, device=self.device)
-                    pads = torch.zeros((batch, 2), dtype=torch.float32, device=self.device)
-                else:
-                    x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
-                boxes, scores, lm = self._decode(self._forward(x), max_dets=max_dets)
-                boxes = boxes_to_original(boxes, scales, pads, hws)
-                if lm is None:
-                    return boxes, scores
-                return boxes, scores, landmarks_to_original(lm, scales, pads, hws)
+        int8_in: the program takes host-quantized int8 images (the stem's
+        table applied while the launch is staged, `stem_input_lut`) instead
+        of raw uint8, and skips the input quantize of the int8 forward's
+        stem. It needs the int8 forward (quantize()), a stem-baked model and
+        the identity (pre-sized) path: the letterbox resize is a float op and
+        cannot take quantized pixels. Raises ValueError otherwise."""
+        key = ("batch", batch, tuple(padded_hw), size, identity, max_dets, int8_in)
+        return self._get_or_build(
+            key, lambda gen: self._build_batch(gen, batch, size, identity, max_dets, int8_in)
+        )
 
-        return run
+    def _batch_fn_auto(
+        self,
+        batch: int,
+        padded_hw: Tuple[int, int],
+        size: int,
+        identity: bool = False,
+        max_dets: Optional[int] = None,
+        int8_in: bool = False,
+        slots: int = STAGING_SLOTS,
+    ):
+        """`_batch_fn` and the staging format its inputs take: (program, fmt)
+        for `stage_inputs`. On a CUDA device fmt is the `PinnedStaging` ring
+        of `slots` pinned slots of this launch signature (shared by every
+        caller of the signature, kept across weight swaps); on the CPU, where
+        there is no transfer to stage, and for the int8-input program, as the
+        JAX Detector does, fmt is None: the pageable copy."""
+        fn = self._batch_fn(batch, padded_hw, size, identity=identity, max_dets=max_dets, int8_in=int8_in)
+        return fn, None if int8_in else self._staging_for(batch, padded_hw, slots)
+
+    def _staging_for(self, batch: int, padded_hw: Tuple[int, int], slots: int = STAGING_SLOTS):
+        """The `PinnedStaging` ring of a (batch, padded_hw) launch on this
+        Detector's CUDA device, made at first use; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        key = (batch, tuple(padded_hw), slots)
+        with self._fn_lock:
+            fmt = self._staging.get(key)
+        if fmt is None:
+            fmt = PinnedStaging(batch, padded_hw, self.device, slots)
+            with self._fn_lock:
+                fmt = self._staging.setdefault(key, fmt)
+        return fmt
 
     def _batch_flip_fn(self, batch: int, padded_hw: Tuple[int, int], size: int):
         """The batch program of the image and its horizontal mirror in one
@@ -394,29 +618,34 @@ class Detector:
         letterbox. Needs a centered letterbox. Returns boxes (B, 2K, 4),
         scores (B, 2K)[, landmarks (B, 2K, 5, 2)]: the first K of each row
         from the image, the second K from its mirror; the caller merges."""
-        if not self.config.preprocess.center:
-            raise ValueError("the flip program needs a centered letterbox (PreprocessConfig.center)")
-        raw = self.config.model.stem_preprocess
-        pp = self.config.preprocess
-        perm = list(self.config.decode.lm_flip_perm)
-        edge = size - 1.0
 
-        def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
-            with torch.inference_mode():
-                x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
-                boxes, scores, lm = self._decode(self._forward(torch.cat([x, x.flip(2)])))
-                mir = boxes[batch:]
-                mir = torch.stack([edge - mir[..., 2], mir[..., 1], edge - mir[..., 0], mir[..., 3]], dim=-1)
-                boxes = boxes_to_original(torch.cat([boxes[:batch], mir], dim=1), scales, pads, hws)
-                scores = torch.cat([scores[:batch], scores[batch:]], dim=1)
-                if lm is None:
-                    return boxes, scores
-                lm_mir = lm[batch:]
-                lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1)[:, :, perm, :]
-                lm = landmarks_to_original(torch.cat([lm[:batch], lm_mir], dim=1), scales, pads, hws)
-                return boxes, scores, lm
+        def build(gen):
+            cfg = gen.config
+            if not cfg.preprocess.center:
+                raise ValueError("the flip program needs a centered letterbox (PreprocessConfig.center)")
+            raw = cfg.model.stem_preprocess
+            pp = cfg.preprocess
+            perm = list(cfg.decode.lm_flip_perm)
+            edge = size - 1.0
 
-        return run
+            def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
+                with torch.inference_mode():
+                    x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
+                    boxes, scores, lm = _decode_with(cfg.decode, gen.forward(torch.cat([x, x.flip(2)])))
+                    mir = boxes[batch:]
+                    mir = torch.stack([edge - mir[..., 2], mir[..., 1], edge - mir[..., 0], mir[..., 3]], dim=-1)
+                    boxes = boxes_to_original(torch.cat([boxes[:batch], mir], dim=1), scales, pads, hws)
+                    scores = torch.cat([scores[:batch], scores[batch:]], dim=1)
+                    if lm is None:
+                        return boxes, scores
+                    lm_mir = lm[batch:]
+                    lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1)[:, :, perm, :]
+                    lm = landmarks_to_original(torch.cat([lm[:batch], lm_mir], dim=1), scales, pads, hws)
+                    return boxes, scores, lm
+
+            return run
+
+        return self._get_or_build(("batch_flip", batch, tuple(padded_hw), size), build)
 
     # ------------------------------------------------------------------ #
     # public API
@@ -465,10 +694,7 @@ class Detector:
             hws = np.tile(np.array(images.shape[1:3], np.int32), (b, 1))
         identity = self._identity_for(images.shape[1:3], size, hws)
         fn = self._batch_fn(b, images.shape[1:3], size, identity=identity)
-        res = fn(
-            torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(self.device),
-            torch.from_numpy(np.asarray(hws, np.int32)).to(self.device),
-        )
+        res = fn(*stage_inputs(None, np.asarray(images, np.uint8), hws, self.device))
         return self.results_to_detections(res, thresh)
 
     def warmup(self, shapes=((640, 640),), size: Optional[int] = None) -> None:

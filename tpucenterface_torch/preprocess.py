@@ -18,6 +18,7 @@ The `scale_and_translate` resize (`resize_impl != "matmul"`) is not ported.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -66,9 +67,24 @@ def _bilinear_rows(n_in: int, size: int, pad, scale, dtype) -> torch.Tensor:
     return (1.0 - (u - i).abs()).clamp_min(0.0).to(dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _device_constant(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """float32 `values` on `device`, copied there once: a host-to-device copy
+    from pageable memory waits for the device's stream, so a program that
+    made its constants on every call would wait for the work queued ahead
+    of it. Callers only read the tensor."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _raw_offset(cfg: PreprocessConfig, device) -> torch.Tensor:
-    off = np.ascontiguousarray(raw_pixel_offset(cfg), np.float32)
-    return torch.from_numpy(off).to(device)
+    off = np.asarray(raw_pixel_offset(cfg), np.float32)
+    return _device_constant(tuple(off.tolist()), torch.device(device))
+
+
+def _mean_std(cfg: PreprocessConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """255 * mean and 255 * std, float32 on `device`."""
+    dev = torch.device(device)
+    return (_device_constant(tuple(cfg.mean), dev) * 255.0, _device_constant(tuple(cfg.std), dev) * 255.0)
 
 
 def letterbox_normalize_matmul(
@@ -100,8 +116,7 @@ def letterbox_normalize_matmul(
     if raw:
         x = y - _raw_offset(cfg, y.device)
     else:
-        mean = torch.tensor(cfg.mean, dtype=torch.float32, device=y.device) * 255.0
-        std = torch.tensor(cfg.std, dtype=torch.float32, device=y.device) * 255.0
+        mean, std = _mean_std(cfg, y.device)
         x = (y - mean) / std
     x = x.to(dtype).contiguous()
     return x, s, torch.stack([pad_x, pad_y], dim=-1)
@@ -118,8 +133,7 @@ def normalize_images(
         return (x - _raw_offset(cfg, x.device)).to(dtype)
     if cfg.bgr_input:
         x = x.flip(-1)
-    mean = torch.tensor(cfg.mean, dtype=torch.float32, device=x.device) * 255.0
-    std = torch.tensor(cfg.std, dtype=torch.float32, device=x.device) * 255.0
+    mean, std = _mean_std(cfg, x.device)
     return ((x - mean) / std).to(dtype)
 
 
