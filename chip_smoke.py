@@ -83,6 +83,26 @@ Phases, in order; any failure raises and the script exits non-zero:
       a plain one syncs), and readings: images/s and p50/p99 of formatted
       against plain staging and of the int8-input against the uint8 engine,
       in alternating turns, and each staging mode's device idle share;
+   i. training (`[train]`, `train/step.py`, `train/loop.py`; the card has
+      no cv2, so the batches are numpy-painted scenes with
+      `data.targets.make_targets`): (1) one float32 step at bs4 @ 320 from
+      the flagship weights, card against the port's CPU run (loss,
+      gradients, params, EMA, batch_stats), with a float64 run of its
+      gradients on the card as the measure of float32 rounding; (2) the
+      flagship recipe (`cli/train_flagship.py`'s defaults) at bs32 @ 320
+      for 80 steps from `init_model` through the loop's `run_steps` and
+      `prefetch_to_device`, FrozenBN from step 40, a checkpoint at 60: the
+      loss finite and falling, the running statistics bit-equal after the
+      boundary, the EMA apart from the live weights; (3) the checkpoint
+      restored into a fresh state steps as the uninterrupted run did; (4)
+      `model.safetensors` and `model_ema.safetensors` exported and detected
+      with `Detector.from_safetensors` on the fast engine (B3) and the
+      module forward with the fused decode (B2), counted; (5) readings:
+      training images/s at bs32 @ 320 and @ 640 with float32 and bfloat16
+      BatchNorm, peak memory with remat off and on, the device idle share
+      of five steps; (6) the steps between two log boundaries of (2) ran
+      under torch.cuda.set_sync_debug_mode("error"), the batch copies
+      included;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -319,6 +339,36 @@ STREAMS, STREAM_FRAMES, STREAM_HW = 8, 8, (720, 1280)
 # every result() and join() of the serving phase waits at most this long, so a
 # deadlock fails the run instead of hanging it
 SERVING_TIMEOUT_S = 120
+
+# The training phase (`[train]`). Card against the port's CPU run: one float32
+# step (TF32 off) at TRAIN_CMP_BATCH @ TRAIN_SIZE from the flagship weights,
+# held to the bounds tests/test_torch_train.py holds the port to JAX with,
+# but for the gradients: the loss and its terms rtol 1e-5; each gradient
+# tensor within TRAIN_GRAD_GMAX of the largest gradient element plus 1e-3 of
+# its own largest. The trained BatchNorm layers of the flagship leave the
+# first layers' batch statistics ill-conditioned in float32 (a gradient sums
+# 10^5 terms that cancel): check 1 also runs the step's gradients in float64
+# on the card and logs how far each float32 side lies from them (seen on an
+# H100: up to 8.2e-4 of the largest gradient on the card, 9.0e-4 on the CPU,
+# so the two may part by their sum). The new params within 1e-3 * lr + 1e-7
+# where the gradient is above TRAIN_GRAD_GMAX of the largest
+# (elsewhere Adam's first step is +-lr by the sign of rounding noise: within
+# 2 * lr); the new running mean within 1e-5 * sqrt(var), the variance rtol
+# 1e-5. The flagship recipe (`cli/train_flagship.py`'s defaults: default
+# width, bf16 convolutions, lr 2e-3, EMA 0.999, clip 5.0, max_objs 32) at
+# TRAIN_BATCH @ TRAIN_SIZE for TRAIN_STEPS steps from `init_model` on
+# TRAIN_SCENES painted scenes (8 steps an epoch: LR drops at steps 48 and
+# 64), FrozenBN from TRAIN_FREEZE, a checkpoint at TRAIN_CKPT; the mean loss
+# of the last ten steps below TRAIN_LOSS_RATIO of the first ten's. The step
+# after the checkpoint, from the restored state against the uninterrupted
+# run's (cuDNN's default algorithms; the nearest-upsample and gather
+# backwards add with atomics, so the gradients may differ in the last bits):
+# the loss rtol 1e-5, the params within TRAIN_RESUME_LR_FRAC * lr.
+# Readings: TRAIN_READ_STEPS timed steps a configuration.
+TRAIN_CMP_BATCH, TRAIN_SIZE, TRAIN_BATCH, TRAIN_SIZE_BIG = 4, 320, 32, 640
+TRAIN_STEPS, TRAIN_SCENES, TRAIN_FREEZE, TRAIN_CKPT = 80, 256, 40, 60
+TRAIN_LOSS_RATIO, TRAIN_RESUME_LR_FRAC, TRAIN_READ_STEPS = 0.7, 1e-2, 10
+TRAIN_GRAD_GMAX = 2e-3
 
 
 def log(msg: str) -> None:
@@ -2093,6 +2143,378 @@ def serving_readings(det, qdet, reqs, smi):
         f"threads a turn, {SERVING_BATCH} images a launch, K = {SERVING_MAX_DETS}: {json.dumps(out)} on {smi}")
 
 
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+
+
+def train_samples(seed, n, size, max_objs):
+    """`n` painted size x size scenes of 1-6 faces as training samples: the
+    uint8 image and `data.targets.make_targets` of its boxes (numpy)."""
+    from tpucenterface_torch.data.targets import make_targets
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        img, boxes = paint_scene(rng, (size, size), rng.randint(1, 7))
+        t = make_targets(boxes, size, max_objs=max_objs)
+        t["image"] = img
+        out.append(t)
+    return out
+
+
+def stack_samples(samples):
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def to_device(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _np_tree(tree):
+    from tpucenterface_torch.train.step import tree_paths
+
+    return {p: t.detach().double().cpu().numpy() for p, t in tree_paths(tree)}
+
+
+def check_step_against(got, want, lr, what):
+    """`got` and `want` are (grads, metrics, params, batch_stats, ema) of one
+    step from one state, held to the TRAIN_CMP bounds (see the constants).
+    Logs the worst errors, each over its bound's scale, then raises on any
+    violation."""
+    g, m, params, stats, ema = got
+    wg, wm, wparams, wstats, wema = want
+    worst = {"loss_rel": max(abs(m[k] - wm[k]) / abs(wm[k]) for k in wm), "grad_over_gmax": 0.0,
+             "grad_over_own": 0.0, "param_firm_over_lr": 0.0, "param_all_over_lr": 0.0, "mean_over_std": 0.0,
+             "var_rel": 0.0}
+    bad = [] if set(m) == set(wm) and worst["loss_rel"] <= 1e-5 else [f"metrics {m} against {wm}"]
+    gmax = max(np.abs(x).max() for x in wg.values())
+    for path, want_g in wg.items():
+        err, own = np.abs(g[path] - want_g).max(), np.abs(want_g).max()
+        worst["grad_over_gmax"] = max(worst["grad_over_gmax"], float(err / gmax))
+        worst["grad_over_own"] = max(worst["grad_over_own"], float(err / own) if own > 0 else 0.0)
+        if err > TRAIN_GRAD_GMAX * gmax + 1e-3 * own:
+            bad.append(f"gradient {path} off by {err}")
+        firm = np.abs(want_g) > TRAIN_GRAD_GMAX * gmax
+        for tree, ref in ((params, wparams), (ema, wema)):
+            d = np.abs(tree[path] - ref[path])
+            if firm.any():
+                worst["param_firm_over_lr"] = max(worst["param_firm_over_lr"], float(d[firm].max() / lr))
+            worst["param_all_over_lr"] = max(worst["param_all_over_lr"], float(d.max() / lr))
+            if (d[firm] > 1e-3 * lr + 1e-7).any() or (d > 2 * lr + 1e-7).any():
+                bad.append(f"params or EMA {path} off by {d.max()}")
+    for path, want_s in wstats.items():
+        if path[-1] == "mean":
+            e = float((np.abs(stats[path] - want_s) / np.sqrt(wstats[path[:-1] + ("var",)])).max())
+            worst["mean_over_std"] = max(worst["mean_over_std"], e)
+        else:
+            e = float((np.abs(stats[path] - want_s) / want_s).max())
+            worst["var_rel"] = max(worst["var_rel"], e)
+        if e > 1e-5:
+            bad.append(f"batch_stats {path} off by {e}")
+    log(f"[train] {what}: loss {m['loss']:.6f} / {wm['loss']:.6f}; largest gradient {gmax:.4g}; worst "
+        f"{json.dumps(worst)}")
+    if bad:
+        raise AssertionError(f"[train] {what}: " + "; ".join(bad[:10]))
+
+
+def check_train_card_cpu():
+    """Check 1: one float32 step at TRAIN_CMP_BATCH @ TRAIN_SIZE from the
+    flagship weights on the card against the port's CPU run."""
+    from tpucenterface_torch.config import ModelConfig, TrainConfig
+    from tpucenterface_torch.model.centernet import CenterFaceNet
+    from tpucenterface_torch.train import step as ts
+    from tpucenterface_torch.weights.io import load_safetensors
+
+    variables = load_safetensors(FLAGSHIP)
+    tcfg = TrainConfig(input_size=TRAIN_SIZE, batch_size=TRAIN_CMP_BATCH, max_objs=32, lr=2e-3, ema_decay=0.999,
+                       grad_clip_norm=5.0)
+    model = CenterFaceNet(ModelConfig(compute_dtype="float32"))
+    tx = ts.make_optimizer(tcfg)
+    batch = stack_samples(train_samples(61, TRAIN_CMP_BATCH, TRAIN_SIZE, tcfg.max_objs))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = ts.train_state_from_variables(variables, tx, ema=True, device=dev)
+        b = to_device(batch, dev)
+        grads, _, _ = ts.make_loss_fn(model, tcfg)(state.params, state.batch_stats, b)
+        new, metrics = ts.make_train_step(model, tx, tcfg)(state, b)
+        out[dev] = (_np_tree(grads), {k: float(v) for k, v in metrics.items()}, _np_tree(new.params),
+                    _np_tree(new.batch_stats), _np_tree(new.ema_params))
+    put = lambda x: torch.from_numpy(np.array(x, np.float64)).to("cuda")  # noqa: E731
+    f64 = CenterFaceNet(ModelConfig(compute_dtype="float64", bn_compute_dtype="float64"))
+    g64, _, _ = ts.make_loss_fn(f64, tcfg)(ts.tree_map(put, variables["params"]),
+                                           ts.tree_map(put, variables["batch_stats"]), to_device(batch, "cuda"))
+    g64 = _np_tree(g64)
+    gmax = max(np.abs(x).max() for x in g64.values())
+    off = {dev: max(float(np.abs(out[dev][0][p] - x).max() / gmax) for p, x in g64.items()) for dev in out}
+    log(f"[train] check 1, float32 gradients against the same step's in float64 on the card, worst tensor over the "
+        f"largest gradient: card {off['cuda']:.3g}, CPU {off['cpu']:.3g}")
+    check_step_against(out["cuda"], out["cpu"], tcfg.lr, f"check 1, a float32 step at bs{TRAIN_CMP_BATCH}@"
+                       f"{TRAIN_SIZE} from the flagship weights, card against the port's CPU run")
+
+
+def train_recipe():
+    """Checks 2, 3 and 6: the flagship recipe for TRAIN_STEPS steps through
+    the loop's `run_steps` (log boundaries every 20 steps, the checkpoint
+    at TRAIN_CKPT), the steps between the boundaries at 60 and 80 under
+    torch.cuda.set_sync_debug_mode("error"), the batches through
+    `prefetch_to_device`. Returns (state, model config, train config, the
+    run's losses and its records)."""
+    import shutil
+
+    from tpucenterface_torch.cli.train_flagship import flagship_train_cfg, parser
+    from tpucenterface_torch.config import ModelConfig
+    from tpucenterface_torch.runtime.prefetch import prefetch_to_device
+    from tpucenterface_torch.train import step as ts
+    from tpucenterface_torch.train.loop import run_steps
+
+    args = parser().parse_args(["--batch-size", str(TRAIN_BATCH), "--input-size", str(TRAIN_SIZE), "--steps",
+                                str(TRAIN_STEPS), "--freeze-bn", str(TRAIN_FREEZE)])
+    tcfg = flagship_train_cfg(args, TRAIN_SCENES)
+    mcfg = ModelConfig()
+    per_epoch = TRAIN_SCENES // TRAIN_BATCH
+    model, state, tx = ts.make_train_state(mcfg, tcfg, seed=0, steps_per_epoch=per_epoch)
+    stats0 = ts.tree_map(torch.clone, state.batch_stats)
+    t0 = time.perf_counter()
+    samples = train_samples(7, TRAIN_SCENES, TRAIN_SIZE, tcfg.max_objs)
+    paint_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+
+    def host_batches():
+        while True:
+            order = rng.permutation(TRAIN_SCENES)
+            for i in range(per_epoch):
+                yield stack_samples([samples[j] for j in order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]])
+
+    steps = {False: ts.make_train_step(model, tx, tcfg), True: ts.make_train_step(model, tx, tcfg, frozen_bn=True)}
+    losses, rec, logs = [], {}, []
+    quiet = range(TRAIN_CKPT + 1, TRAIN_STEPS - 1)  # between the boundaries at 60 and 80
+
+    def step_for(i):
+        def run(st, batch):
+            if i == TRAIN_FREEZE:
+                rec["stats_at_freeze"] = ts.tree_map(torch.clone, st.batch_stats)
+            if i == TRAIN_CKPT:
+                rec["batch"], rec["before"] = batch, st
+            if i == quiet[0]:
+                torch.cuda.set_sync_debug_mode("error")
+            new, m = steps[i >= tcfg.freeze_bn_steps](st, batch)
+            losses.append(m["loss"])
+            if i == TRAIN_CKPT:
+                rec["after"], rec["after_loss"] = new, m["loss"]
+            if i == quiet[-1]:
+                torch.cuda.set_sync_debug_mode("default")
+            return new, m
+
+        return run
+
+    workdir = os.path.join(ROOT, "build", "train_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        state, step, last_ckpt = run_steps(
+            step_for, state, prefetch_to_device(host_batches(), size=2), 0, TRAIN_STEPS, TRAIN_BATCH,
+            log_every=20, log_fn=lambda s, m: logs.append((s, m)), ckpt_every=TRAIN_CKPT, workdir=workdir)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss = torch.stack(losses).cpu().numpy()
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    log(f"[train] check 2, the flagship recipe at bs{TRAIN_BATCH}@{TRAIN_SIZE} ({TRAIN_SCENES} painted scenes in "
+        f"{paint_s:.1f} s; LR drops at {[b for b, _ in tx.boundaries]}; FrozenBN from step {TRAIN_FREEZE}): "
+        f"{len(loss)} steps in {wall:.2f} s with the loop's host work and the prefetch; losses by tens "
+        f"{[round(float(x), 4) for x in loss.reshape(-1, 10).mean(axis=1)]}; logged {[(s, round(m['loss'], 4)) for s, m in logs]}")
+    if step != TRAIN_STEPS or last_ckpt != TRAIN_CKPT or not np.isfinite(loss).all():
+        raise AssertionError(f"[train] the recipe ran {step} steps, saved at {last_ckpt}, losses {loss}")
+    if not last < TRAIN_LOSS_RATIO * first:
+        raise AssertionError(f"[train] the loss fell from {first} to {last} only")
+    moved = sum(not torch.equal(a, b) for (_, a), (_, b) in zip(ts.tree_paths(rec["stats_at_freeze"]),
+                                                                 ts.tree_paths(stats0)))
+    for (path, a), (_, b) in zip(ts.tree_paths(state.batch_stats), ts.tree_paths(rec["stats_at_freeze"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[train] batch_stats {path} moved after the FrozenBN boundary")
+    ema_differs = sum(not torch.equal(a, b) for (_, a), (_, b) in zip(ts.tree_paths(state.ema_params),
+                                                                       ts.tree_paths(state.params)))
+    if not moved or not ema_differs:
+        raise AssertionError(f"[train] statistics moved in {moved} tensors before the boundary, EMA differs in "
+                             f"{ema_differs}")
+    log(f"[train] running statistics: {moved} tensors moved in the {TRAIN_FREEZE} live steps, all bit-equal over the "
+        f"{TRAIN_STEPS - TRAIN_FREEZE} frozen ones; the EMA differs from the live params in {ema_differs} tensors; "
+        f"steps {quiet[0]}-{quiet[-1]} ran under set_sync_debug_mode('error'), the batch copies included")
+    return state, mcfg, tcfg, (model, tx, steps, rec, workdir)
+
+
+def check_train_resume(mcfg, tcfg, run):
+    """Check 3: the checkpoint at TRAIN_CKPT restored into a fresh state
+    equals the run's state there bit for bit, and its next step equals the
+    run's next step (see the constants)."""
+    from tpucenterface_torch.train import step as ts
+    from tpucenterface_torch.train.loop import restore_checkpoint
+
+    model, tx, steps, rec, workdir = run
+    _, template, _ = ts.make_train_state(mcfg, tcfg, seed=1, steps_per_epoch=TRAIN_SCENES // TRAIN_BATCH)
+    restored = restore_checkpoint(workdir, template)
+    for name in ("params", "batch_stats", "opt_state", "ema_params"):
+        for (path, a), (_, b) in zip(ts.tree_paths(getattr(restored, name)), ts.tree_paths(getattr(rec["before"], name))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[train] the restored {name} {path} differs from the saved state")
+    if int(restored.step) != TRAIN_CKPT:
+        raise AssertionError(f"[train] restored step {int(restored.step)}")
+    new, m = steps[True](restored, rec["batch"])
+    lr = float(tx.learning_rate(torch.tensor(TRAIN_CKPT)))
+    loss_rel = abs(float(m["loss"]) - float(rec["after_loss"])) / abs(float(rec["after_loss"]))
+    worst = {}
+    for name in ("params", "ema_params", "batch_stats"):
+        worst[name] = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+            ts.tree_paths(getattr(new, name)), ts.tree_paths(getattr(rec["after"], name))))
+    log(f"[train] check 3, the step after the checkpoint at {TRAIN_CKPT}, restored against uninterrupted: loss "
+        f"relative difference {loss_rel:.3g}, max |difference| {json.dumps(worst)} (lr there {lr:.3g}; cuDNN's "
+        f"default algorithms)")
+    if loss_rel > 1e-5 or max(worst.values()) > TRAIN_RESUME_LR_FRAC * lr:
+        raise AssertionError("[train] the resumed step differs from the uninterrupted one")
+
+
+def check_train_export(state, cfg, smi):
+    """Check 4: export model.safetensors and model_ema.safetensors, load each
+    with Detector.from_safetensors on the fast engine and on the module
+    forward, both with the fused decode, and detect on painted scenes with
+    every launch counter set to 0 just before and read just after; the fast
+    engine's detections against the module forward's, its heat map against
+    the float32 forward's. Returns the launch counts."""
+    import dataclasses
+
+    from tpucenterface_torch import Detector, DetectorConfig, ModelConfig
+    from tpucenterface_torch.train.loop import export_weights
+
+    workdir = os.path.join(ROOT, "build", "train_smoke")
+    export_weights(workdir, state)
+    at = DetectorConfig(decode=cfg.decode, default_size=TRAIN_SIZE)
+    imgs, gts = paint_batch(71, 32, (TRAIN_SIZE, TRAIN_SIZE))
+    dets = {}
+    for name in ("model", "model_ema"):
+        path = os.path.join(workdir, f"{name}.safetensors")
+        dets[name] = {kind: Detector.from_safetensors(path, dataclasses.replace(at, model=ModelConfig(**kw)))
+                      for kind, kw in (("module", {}), ("fast", {"inference_engine": "fast"}),
+                                       ("f32", {"compute_dtype": "float32"}))}
+    n_blocks = len(dets["model"]["fast"]._engine.kernel_blocks(TRAIN_SIZE))
+    zero_launches()
+    out = {name: {kind: d[kind].detect_batch(imgs, score_thresh=0.02) for kind in ("module", "fast")}
+           for name, d in dets.items()}
+    launches = read_launches()
+    log(f"[train] check 4, detect on the exports (bs32@{TRAIN_SIZE}, module forward and fast engine, fused decode): "
+        f"launches {launches}")
+    if launches != launch_counts(decode_feats_fused=4, fused_mbconv=2 * n_blocks):
+        raise AssertionError(f"[train] export: launches {launches}")
+    x = normalize_raw(dets["model"]["module"], imgs, "cuda")
+    for name, d in dets.items():
+        for r in out[name]["fast"] + out[name]["module"]:
+            if not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all()) or (r.boxes < 0).any() or (
+                    r.boxes > TRAIN_SIZE).any():
+                raise AssertionError(f"[train] {name}: non-finite or out-of-image detections")
+        n, bad = count_unmatched(out[name]["fast"], out[name]["module"], firm=0.05)
+        with torch.inference_mode():
+            ref = d["f32"]._forward(x)["hm"]
+        hm = {kind: _hm_distance(d[kind], x, ref) for kind in ("fast", "module")}
+        found = sum(int((iou(g, r.boxes[r.scores >= 0.05]).max(axis=1) >= 0.5).sum()) if len(g) and
+                    (r.scores >= 0.05).any() else 0 for g, r in zip(gts, out[name]["module"]))
+        log(f"[train] {name}: fast engine against the module forward, detections >= 0.05 without a partner within "
+            f"{BF16_BOX_ATOL} px and {BF16_SCORE_ATOL}: {bad} of {n}; mean |hm - float32| fast {hm['fast']:.4g}, "
+            f"module {hm['module']:.4g}; painted faces found >= 0.05 at IoU 0.5: {found} of {sum(map(len, gts))}")
+        # the EMA (d = 0.999) of an 80-step run is 92% the random init: a
+        # flat heat map of near-tied peaks, whose detections either rounding
+        # moves, so only the live export's detections are matched
+        if (name == "model" and bad > (1.0 - FAST_MATCH_SHARE) * n + FAST_F32_SLACK) or (
+                hm["fast"] > FAST_F32_HM_RATIO * hm["module"]):
+            raise AssertionError(f"[train] {name}: the fast engine differs from the module forward")
+    return launches
+
+
+def train_readings(samples320, smi):
+    """Readings, not claims: training images/s (TRAIN_READ_STEPS steps on a
+    device-resident batch, after three warm-up steps, host clock around
+    synchronized runs) at bs32 @ 320 and @ 640 with float32 and bfloat16
+    BatchNorm; peak memory of a step at bs32 @ 640 with remat off and on;
+    the device idle share of five steps at bs32 @ 320 (torch.profiler)."""
+    from tpucenterface_torch.config import ModelConfig, TrainConfig
+    from tpucenterface_torch.train import step as ts
+
+    big = train_samples(83, TRAIN_BATCH, TRAIN_SIZE_BIG, 32)
+    batches = {TRAIN_SIZE: to_device(stack_samples(samples320), "cuda"),
+               TRAIN_SIZE_BIG: to_device(stack_samples(big), "cuda")}
+
+    def stepper(size, bn="float32", remat=False):
+        tcfg = TrainConfig(input_size=size, batch_size=TRAIN_BATCH, max_objs=32, lr=2e-3, ema_decay=0.999,
+                           grad_clip_norm=5.0, remat=remat)
+        model, st, tx = ts.make_train_state(ModelConfig(bn_compute_dtype=bn), tcfg)
+        fn = ts.make_train_step(model, tx, tcfg)
+        box = [st]
+
+        def one():
+            box[0], _ = fn(box[0], batches[size])
+
+        return one
+
+    out = {}
+    for size in (TRAIN_SIZE, TRAIN_SIZE_BIG):
+        for bn in ("float32", "bfloat16"):
+            one = stepper(size, bn)
+            for _ in range(3):
+                one()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_READ_STEPS):
+                one()
+            torch.cuda.synchronize()
+            out[f"img_s bs{TRAIN_BATCH}@{size} bn {bn}"] = TRAIN_READ_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+            del one
+    for remat in (False, True):
+        one = stepper(TRAIN_SIZE_BIG, remat=remat)
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one()
+        torch.cuda.synchronize()
+        out[f"peak_gib bs{TRAIN_BATCH}@{TRAIN_SIZE_BIG} remat {remat}"] = torch.cuda.max_memory_allocated() / 2**30
+        out[f"step_gib_above_resident remat {remat}"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del one
+    one = stepper(TRAIN_SIZE)
+    prof = device_profile(one, iters=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    out[f"profile bs{TRAIN_BATCH}@{TRAIN_SIZE} step"] = {
+        k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
+    # the profiler's wall includes its own host cost and a synchronize a step;
+    # five steps back to back without it give the loop's own wall a step
+    out[f"profile bs{TRAIN_BATCH}@{TRAIN_SIZE} step"]["unprofiled_wall_ms"] = wall_ms
+    out[f"profile bs{TRAIN_BATCH}@{TRAIN_SIZE} step"]["device_idle_share_unprofiled"] = 1.0 - prof[
+        "device_busy_ms"] / wall_ms
+    out[f"profile bs{TRAIN_BATCH}@{TRAIN_SIZE} step"]["top_device_ms"] = dict(list(prof["top_device_ms"].items())[:8])
+    log(f"[train] readings: {json.dumps(out)} on {smi}")
+
+
+def phase_train(cfg, smi):
+    """Path i, training (`[train]`): checks 1-6 in order (see the constants
+    and each check's docstring). The card has no cv2, so the batches are
+    painted with numpy and the targets rendered by `data.targets`; the phase
+    drives `train.step` and `train.loop`'s `run_steps`, checkpoint and
+    export functions. Returns the launch counts of check 4."""
+    check_train_card_cpu()
+    state, mcfg, tcfg, run = train_recipe()
+    check_train_resume(mcfg, tcfg, run)
+    launches = check_train_export(state, cfg, smi)
+    del run, state
+    train_readings(train_samples(7, TRAIN_BATCH, TRAIN_SIZE, 32), smi)
+    return launches
+
+
 def normalize_raw(det, imgs, dev):
     """The identity-path input of `det` for uint8 images at its size."""
     from tpucenterface_torch.preprocess import normalize_images
@@ -2575,7 +2997,8 @@ def main() -> int:
              phase_main_quant(quant_dets, det, det_f32, d640, x, det_feats),
              phase_eval(det, det_fast, det_cpu, smi),
              phase_main_large(large_dets, feats_imgs, x_large),
-             phase_serving(cfg, det, det_fast, quant_dets["b7"], smi)]
+             phase_serving(cfg, det, det_fast, quant_dets["b7"], smi),
+             phase_train(cfg, smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

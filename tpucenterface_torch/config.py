@@ -1,8 +1,8 @@
 """Frozen configuration dataclasses of the PyTorch port.
 
 Mirrors `tpucenterface/config.py` (`ModelConfig`, `DecodeConfig`,
-`PreprocessConfig`, `DetectorConfig`, `preset`, `DEFAULT_BUCKETS`,
-`INPUT_PAD_MULTIPLE`) field for field, with the same names and defaults, so a
+`PreprocessConfig`, `DetectorConfig`, `preset`, `TrainConfig`,
+`DEFAULT_BUCKETS`, `INPUT_PAD_MULTIPLE`) field for field, with the same names and defaults, so a
 config built for one package means the same model in the other. The JAX
 package's field comments carry the measurements behind each default; they were
 taken on a TPU and are not repeated here.
@@ -148,3 +148,44 @@ def preset(name: str) -> DetectorConfig:
             model=ModelConfig(width_mult=1.4, fpn_channels=48, head_conv=48)
         )
     raise KeyError(f"unknown preset '{name}' (default|small|large)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """CenterNet training hyperparameters (`tpucenterface/config.py:236-290`)."""
+
+    input_size: int = 640
+    batch_size: int = 32
+    lr: float = 5e-4
+    lr_drops: Tuple[int, ...] = (90, 120)   # epochs at which the LR drops
+    lr_drop_factor: float = 0.1
+    epochs: int = 140
+    weight_decay: float = 0.0
+    hm_weight: float = 1.0
+    wh_weight: float = 0.1
+    off_weight: float = 1.0
+    lm_weight: float = 0.1
+    # render landmark targets from the records' GT (pair with
+    # ModelConfig.with_landmarks); records without landmarks give lm_mask=0
+    with_landmarks: bool = False
+    focal_alpha: float = 2.0
+    focal_beta: float = 4.0
+    max_objs: int = 128          # per-image cap on rendered GT boxes
+    # recompute the forward's activations in the backward pass
+    # (torch.utils.checkpoint): activation memory for operations
+    remat: bool = False
+    # exponential moving average of the params (0 = off), updated inside
+    # the step as ema = d*ema + (1-d)*params; exported as
+    # model_ema.safetensors beside the live weights
+    ema_decay: float = 0.0
+    # global-norm gradient clipping ahead of Adam (0 = off)
+    grad_clip_norm: float = 0.0
+    # FrozenBN boundary (0 = off): from this step on BatchNorm normalizes
+    # with its running averages and the statistics stop updating, so train
+    # and eval normalization are the same for the rest of the run
+    freeze_bn_steps: int = 0
+    # augmentation
+    scale_range: Tuple[float, float] = (0.6, 1.4)
+    shift_ratio: float = 0.1
+    flip_prob: float = 0.5
+    color_jitter: float = 0.4

@@ -1,1 +1,3 @@
-"""Data: the WIDER annotation record (`wider.WiderImage`)."""
+"""Data: WIDER records and parsers (`wider`), target rendering (`targets`),
+augmentation (`augment`), the batch pipeline (`loader`) and the procedural
+scene generator (`synth`)."""

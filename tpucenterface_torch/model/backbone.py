@@ -46,6 +46,7 @@ def block_kwargs(cfg: ModelConfig) -> dict:
     return dict(
         relu6=cfg.relu6,
         bn_eps=cfg.bn_eps,
+        bn_momentum=cfg.bn_momentum,
         dtype=dtype_of(cfg.compute_dtype),
         folded=cfg.folded,
         bn_dtype=dtype_of(cfg.bn_compute_dtype),
@@ -66,11 +67,11 @@ class MobileNetV2Backbone(nn.Module):
             self.add_module(f"block_{i}", InvertedResidual(cin, c, s, t, **kw))
             cin = c
 
-    def forward(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
-        x = self.stem(x.to(self.dtype))
+    def forward(self, x: torch.Tensor, train: bool = False) -> Dict[int, torch.Tensor]:
+        x = self.stem(x.to(self.dtype), train)
         feats: Dict[int, torch.Tensor] = {}
         for i, (_, _, _, out_stride) in enumerate(self.plan):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, train)
             if _is_skip(self.plan, i):
                 feats[out_stride] = x
         return feats

@@ -33,9 +33,9 @@ class CenterFaceNet(nn.Module):
         self.neck = FPNLiteNeck(cfg)
         self.heads = CenterNetHeads(cfg)
 
-    def forward(self, x_nhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x_nhwc: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
         x = x_nhwc.permute(0, 3, 1, 2)
-        return self.heads(self.neck(self.backbone(x)))
+        return self.heads(self.neck(self.backbone(x, train), train=train))
 
     def cast_convs_(self) -> "CenterFaceNet":
         """Store the weights and biases of every compute-dtype convolution in
@@ -60,9 +60,29 @@ def load_network(variables: Dict[str, Any], cfg: ModelConfig, device: torch.devi
 
 def init_model(cfg: ModelConfig, seed: int = 0) -> Tuple[CenterFaceNet, Dict[str, Any]]:
     """Random unfolded network from `seed`; returns (module, JAX-layout
-    variables {'params', 'batch_stats'} as numpy). torch's own initializers
-    draw the weights, so the values differ from the JAX package's init."""
+    variables {'params', 'batch_stats'} as numpy).
+
+    The draws follow flax's initializers (`tpucenterface/model/centernet.py::
+    init_model` through `nn.Conv`, `nn.BatchNorm` and `model/heads.py`), so
+    the distributions are the JAX package's; the values differ, as the
+    generators do:
+    - every conv kernel `lecun_normal`: variance_scaling(1, fan_in,
+      truncated_normal), a normal of std sqrt(1/fan_in)/0.87962566 cut at
+      two of its stds, fan_in = kh*kw*Cin/groups (9 for a depthwise kernel);
+    - conv biases 0, but the heads' out biases: the heatmap prior
+      `cfg.hm_bias_init` on the hm channels, 0 on the others;
+    - BatchNorm scale 1, bias 0, running mean 0, running variance 1.
+    Kernels are drawn in module order from a `torch.Generator` seeded with
+    `seed`; the global RNG is left as it was."""
+    gen = torch.Generator().manual_seed(seed)
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
         model = CenterFaceNet(cfg)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if not isinstance(m, nn.Conv2d):
+                continue
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+            if m.bias is not None and not name.endswith(".out"):
+                m.bias.zero_()  # a Head sets its out bias to the prior itself
     return model, variables_from_state_dict(model.state_dict())

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpucenterface_torch.config import ModelConfig, dtype_of
+from tpucenterface_torch.model.blocks import at_least_f32
 
 
 class Head(nn.Module):
@@ -35,7 +36,7 @@ class Head(nn.Module):
         if hasattr(self, "conv"):
             w, b = self.conv.weight.to(self.dtype), self.conv.bias.to(self.dtype)
             x = F.conv2d(x, w, b, 1, 1).relu()
-        x = x.float().permute(0, 2, 3, 1)
+        x = at_least_f32(x).permute(0, 2, 3, 1)
         w = self.out.weight[:, :, 0, 0]
         return torch.matmul(x, w.t()) + self.out.bias
 

@@ -29,13 +29,15 @@ class FPNLiteNeck(nn.Module):
         for s in self.strides[1:]:
             self.add_module(f"smooth_{s}", ConvBN(c, c, kernel=3, **kw))
 
-    def forward(self, feats: Dict[int, torch.Tensor], top_lateral: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, feats: Dict[int, torch.Tensor], top_lateral: Optional[torch.Tensor] = None, train: bool = False
+    ) -> torch.Tensor:
         """`top_lateral`, where given, stands for the top lateral's output (a
         caller that has folded that 1x1 conv into the backbone passes it)."""
         top = self.strides[0]
-        y = getattr(self, f"lateral_{top}")(feats[top]) if top_lateral is None else top_lateral
+        y = getattr(self, f"lateral_{top}")(feats[top], train) if top_lateral is None else top_lateral
         for s in self.strides[1:]:
-            lat = getattr(self, f"lateral_{s}")(feats[s])
+            lat = getattr(self, f"lateral_{s}")(feats[s], train)
             y = F.interpolate(y, scale_factor=2, mode="nearest") + lat
-            y = getattr(self, f"smooth_{s}")(y)
+            y = getattr(self, f"smooth_{s}")(y, train)
         return y  # stride 4, fpn_channels wide

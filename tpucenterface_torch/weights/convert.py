@@ -47,7 +47,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def _torch_key(path) -> Tuple[str, bool]:
+def torch_key(path) -> Tuple[str, bool]:
     """flax path -> (port state_dict key, kernel needing HWIO -> OIHW)."""
     col, *mods, leaf = path
     if col == "batch_stats" or (mods and mods[-1] == "bn"):
@@ -64,7 +64,7 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> Dict[str, torch.T
         if col not in variables:
             continue
         for path, leaf in _flatten(variables[col], (col,)):
-            key, is_kernel = _torch_key(path)
+            key, is_kernel = torch_key(path)
             w = np.asarray(leaf, np.float32)
             if is_kernel:
                 w = np.transpose(w, (3, 2, 0, 1))

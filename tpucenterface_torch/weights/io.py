@@ -1,8 +1,9 @@
-"""Safetensors reading with numpy alone.
+"""Safetensors reading and writing with numpy alone.
 
-Mirrors `tpucenterface/weights/io.py::load_safetensors`, which uses the
-`safetensors` package; that package is not installed everywhere the port runs,
-so this module reads the format itself:
+Mirrors `tpucenterface/weights/io.py::load_safetensors` and
+`::save_safetensors`, which use the `safetensors` package; that package is not
+installed everywhere the port runs, so this module reads and writes the
+format itself:
 
     8 bytes   little-endian u64: length N of the JSON header
     N bytes   JSON: {name: {"dtype", "shape", "data_offsets": [begin, end]}, ...}
@@ -10,7 +11,10 @@ so this module reads the format itself:
     rest      the tensors' raw little-endian bytes, offsets relative to here
 
 Keys are '/'-joined flax paths ('params/backbone/stem/conv/kernel'), split
-back into the nested {'params': ..., 'batch_stats': ...} tree.
+back into the nested {'params': ..., 'batch_stats': ...} tree. The writer
+lays the tensors out back to back in sorted key order and pads the header
+with spaces to a multiple of 8 bytes, as the `safetensors` package does, so
+that package reads what the port writes.
 
 `save_quant_scales` / `load_quant_scales` persist a quantized Detector's
 scales as JSON (`tpucenterface/weights/io.py:141-168`): floats for per-tensor
@@ -24,6 +28,7 @@ import struct
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 _DTYPES = {
     "F64": "<f8",
@@ -36,6 +41,44 @@ _DTYPES = {
     "U8": "u1",
     "BOOL": "?",
 }
+
+
+_NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
+
+
+def flatten(tree: Dict[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """{'a': {'b': {'c': v}}} -> {'a/b/c': v}."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}{sep}{kk}": vv for kk, vv in flatten(v, sep).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def save_safetensors(variables: Dict[str, Any], path: str) -> None:
+    """Write a nested {'params': ..., 'batch_stats': ...} tree (numpy arrays
+    or tensors, any device) with '/'-joined keys, the layout
+    `load_safetensors` and the JAX package's `load_safetensors` read."""
+    arrays = {}
+    for key, v in flatten(variables).items():
+        a = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+        if a.dtype not in _NAMES:
+            raise ValueError(f"tensor {key} has unsupported dtype {a.dtype}")
+        arrays[key] = a if a.flags.c_contiguous else a.copy(order="C")
+    header, offset = {}, 0
+    for key in sorted(arrays):
+        a = arrays[key]
+        header[key] = {"dtype": _NAMES[a.dtype], "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for key in sorted(arrays):
+            f.write(arrays[key].tobytes())
 
 
 def read_safetensors_flat(path: str) -> Dict[str, np.ndarray]:
