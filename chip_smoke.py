@@ -103,6 +103,20 @@ Phases, in order; any failure raises and the script exits non-zero:
       of five steps; (6) the steps between two log boundaries of (2) ran
       under torch.cuda.set_sync_debug_mode("error"), the batch copies
       included;
+   j. int8 fine-tuning (`[quant_ft]`, `quant/qat.py`, `quant/adaround.py`,
+      `weights/io.py`'s packed artifact) on the flagship weights with
+      int8_dw, calibrated on 16 painted 320 frames: (a) one STE step at bs4
+      @ 320, card against the port's CPU run under one scales dict, a
+      float64 run on the card beside them, and the bias-correction means;
+      (b) `quantize(qat_steps=60)`: loss_last <= loss_bc <= loss_first;
+      (c) `quantize(weight_bits=4, adaround_steps=40)`: every layer's ratio
+      <= 1; (d) both tuned detectors at bs32 @ 640 on the library route and
+      on the B7 route (the persisted pair installed with fused_blocks=True):
+      B7 ten launches a forward, B2 one a call, the painted faces found, the
+      routes matched; (e) `quant_variables` and the packed W4 artifact
+      reloaded bit-equal, the artifact under half the float32 bytes; then
+      readings: seconds of calibration, QAT and AdaRound, and the B7 route's
+      images/s of the tuned detectors beside the PTQ detector's;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -369,6 +383,25 @@ TRAIN_CMP_BATCH, TRAIN_SIZE, TRAIN_BATCH, TRAIN_SIZE_BIG = 4, 320, 32, 640
 TRAIN_STEPS, TRAIN_SCENES, TRAIN_FREEZE, TRAIN_CKPT = 80, 256, 40, 60
 TRAIN_LOSS_RATIO, TRAIN_RESUME_LR_FRAC, TRAIN_READ_STEPS = 0.7, 1e-2, 10
 TRAIN_GRAD_GMAX = 2e-3
+
+# The fine-tuning phase (`[quant_ft]`): the flagship at default width with
+# int8_dw, calibrated on QFT_CALIB_FRAMES painted QFT_SIZE frames, then QAT
+# for QFT_QAT_STEPS steps and W4 AdaRound for QFT_ADA_STEPS steps
+# (`cli/flagship_pins.py:37-40` of the JAX package). Check (a), one STE step
+# at QFT_CMP_BATCH @ QFT_SIZE, card against the port's CPU run from one
+# scales dict and one target (TF32 off): the fakequant loss rtol
+# QFT_LOSS_RTOL, the gradients within QFT_GRAD_MAX of the largest element and
+# QFT_GRAD_NORM of the norm, the bias-correction means within QFT_MEAN_ATOL
+# of the largest mean. The bounds are three to five times the card's
+# readings (NVIDIA H100 80GB HBM3, 700 W: loss 2.2e-5, gradients 0.34% and
+# 0.35%, means 2.2e-7 in both modes, alike in four calls), and a control shows
+# they bite: the card's step with TF32 on must break at least one (it read
+# 0.0092 in loss, 35% in the gradients). A float64 run is no judge: float32
+# rounding moves activations across grid points of the piecewise-constant
+# loss, so float64 lies 91% of the largest gradient from both float32 runs.
+QFT_CALIB_FRAMES, QFT_SIZE, QFT_QAT_STEPS, QFT_ADA_STEPS, QFT_CMP_BATCH = 16, 320, 60, 40, 4
+QFT_LOSS_RTOL, QFT_GRAD_MAX, QFT_GRAD_NORM = 1e-4, 0.01, 0.01
+QFT_MEAN_ATOL = {"quant": 1e-6, "float": 1e-6}
 
 
 def log(msg: str) -> None:
@@ -2515,6 +2548,219 @@ def phase_train(cfg, smi):
     return launches
 
 
+def _grads_np(tree):
+    from tpucenterface_torch.train.step import tree_paths
+
+    return {p: t.detach().double().cpu().numpy() for p, t in tree_paths(tree)}
+
+
+def _ste_step(eng, x, target, keys):
+    from tpucenterface_torch.quant.qat import ste_loss_and_grads
+
+    dev = eng.device
+    loss, grads = ste_loss_and_grads(eng, eng.p, x.to(dev), {k: v.to(dev) for k, v in target.items()}, keys)
+    return float(loss), _grads_np(grads)
+
+
+def _step_apart(card, cpu):
+    """(loss rtol, worst gradient element over the largest, gradient distance
+    over the norm) of two (loss, gradients) results."""
+    (l_a, g_a), (l_b, g_b) = card, cpu
+    gmax = max(np.abs(a).max() for a in g_b.values())
+    gnorm = np.sqrt(sum((a ** 2).sum() for a in g_b.values()))
+    worst = max(np.abs(g_a[p] - g_b[p]).max() for p in g_b) / gmax
+    norm = np.sqrt(sum(((g_a[p] - g_b[p]) ** 2).sum() for p in g_b)) / gnorm
+    return abs(l_a - l_b) / abs(l_b), worst, norm
+
+
+def _step_bounds_broken(apart):
+    rtol, worst, norm = apart
+    bad = []
+    if rtol > QFT_LOSS_RTOL:
+        bad.append(f"loss apart by {rtol:.3g} (bound {QFT_LOSS_RTOL})")
+    if worst > QFT_GRAD_MAX:
+        bad.append(f"gradients apart by {worst:.3g} of the largest (bound {QFT_GRAD_MAX})")
+    if norm > QFT_GRAD_NORM:
+        bad.append(f"gradients apart by {norm:.3g} of the norm (bound {QFT_GRAD_NORM})")
+    return bad
+
+
+def quant_ft_step_check(frames, scales):
+    """Check (a): one STE step of the flagship's int8_dw engine at
+    QFT_CMP_BATCH @ QFT_SIZE, card against the port's CPU run, under one
+    scales dict and one float target; the control, the card's step with TF32
+    on, must break the bounds; then the bias-correction means of the two
+    devices."""
+    from tpucenterface_torch import Detector, DetectorConfig
+    from tpucenterface_torch.quant import QuantEngine
+
+    keys = ["hm", "whoff"]
+    det = Detector.from_safetensors(FLAGSHIP, DetectorConfig(default_size=QFT_SIZE), device="cpu")
+    x_cpu = normalize_raw(det, frames[:QFT_CMP_BATCH], "cpu")
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        eng = QuantEngine(det.variables, det.config.model, int8_dw=True, pp_cfg=det.config.preprocess, device=dev)
+        eng.set_scales(scales)
+        engines[dev] = eng
+    with torch.no_grad():
+        target = {k: v.float() for k, v in engines["cuda"]._forward(x_cpu.to("cuda"), "float").items() if k in keys}
+    cpu = _ste_step(engines["cpu"], x_cpu, target, keys)
+    card = _ste_step(engines["cuda"], x_cpu, target, keys)
+    apart = _step_apart(card, cpu)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        control = _step_apart(_ste_step(engines["cuda"], x_cpu, target, keys), cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    bad, caught = _step_bounds_broken(apart), _step_bounds_broken(control)
+    log(f"[quant_ft] (a) one STE step at bs{QFT_CMP_BATCH}@{QFT_SIZE}: fakequant loss card {card[0]:.9g}, CPU "
+        f"{cpu[0]:.9g}; card against CPU: loss rtol {apart[0]:.3g}, gradients worst element {apart[1]:.3g} of "
+        f"the largest, {apart[2]:.3g} of the norm; control (TF32 on) against CPU: loss rtol {control[0]:.3g}, "
+        f"gradients {control[1]:.3g} of the largest, {control[2]:.3g} of the norm; the control breaks "
+        f"{len(caught)} of the 3 bounds")
+    if not caught:
+        bad.append("the TF32 control stays inside the bounds, so they cannot tell a device fault")
+    for mode in ("quant", "float"):
+        means = {}
+        for dev, eng in engines.items():
+            eng._bc_collector = {}
+            with torch.no_grad():
+                eng._forward(x_cpu.to(dev), mode, params=eng.p)
+            means[dev], eng._bc_collector = {k: v.double().cpu().numpy() for k, v in eng._bc_collector.items()}, None
+        top = max(np.abs(v).max() for v in means["cpu"].values())
+        off = max(np.abs(means["cuda"][t] - v).max() for t, v in means["cpu"].items()) / top
+        log(f"[quant_ft] (a) bias-correction means, {mode} mode, {len(means['cpu'])} convs: card against CPU "
+            f"{off:.3g} of the largest mean ({top:.4g})")
+        if set(means["cuda"]) != set(means["cpu"]) or off > QFT_MEAN_ATOL[mode]:
+            bad.append(f"{mode}-mode means apart by {off:.3g} of the largest")
+    if bad:
+        raise AssertionError("[quant_ft] (a) card against CPU: " + "; ".join(bad))
+
+
+def phase_quant_ft(cfg, smi, ptq_b7):
+    """Path j, int8 fine-tuning (`[quant_ft]`): checks (a)-(e) and readings
+    (see the constants). Returns the launch counts of the serving run (d);
+    the fine-tuning itself runs the per-conv route and launches no kernel
+    (counted and required 0)."""
+    import shutil
+
+    from tpucenterface_torch import Detector, DetectorConfig
+    from tpucenterface_torch.weights.io import load_packed_weights, load_safetensors, save_packed_weights
+    from tpucenterface_torch.weights.io import save_safetensors
+
+    frames, _ = paint_batch(31, QFT_CALIB_FRAMES, (QFT_SIZE, QFT_SIZE))
+    secs = {}
+    zero_launches()
+    t0 = time.perf_counter()
+    scales = Detector.from_safetensors(FLAGSHIP, cfg).quantize(calib_images=frames, size=QFT_SIZE, int8_dw=True)
+    torch.cuda.synchronize()
+    secs["calibration"] = time.perf_counter() - t0
+    quant_ft_step_check(frames, scales)
+
+    tuned = {}
+    for name, kw in (("w8_qat", dict(qat_steps=QFT_QAT_STEPS)), ("w4_adaround", dict(weight_bits=4,
+                                                                                       adaround_steps=QFT_ADA_STEPS))):
+        det = Detector.from_safetensors(FLAGSHIP, cfg)
+        t0 = time.perf_counter()
+        s = det.quantize(calib_images=frames, size=QFT_SIZE, int8_dw=True, **kw)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        tuned[name] = (det, s)
+    launched = read_launches()
+    if any(launched.values()):
+        raise AssertionError(f"[quant_ft] calibration and fine-tuning launched kernels: {launched}")
+    m = tuned["w8_qat"][0].last_qat_metrics
+    log(f"[quant_ft] (b) QAT, {QFT_QAT_STEPS} steps on {QFT_CALIB_FRAMES} painted {QFT_SIZE} frames: {json.dumps(m)}")
+    if not m["loss_last"] <= m["loss_bc"] <= m["loss_first"] or m["steps"] != QFT_QAT_STEPS:
+        raise AssertionError(f"[quant_ft] (b) QAT is not monotone: {m}")
+    # the served int8 weights are formed by the rule that QAT selected with
+    det = tuned["w8_qat"][0]
+    with torch.no_grad():
+        x = normalize_raw(det, frames[:QFT_CMP_BATCH], "cuda")
+        served, selected = det._quant(x), det._quant._forward(x, "quant", params=det._quant.p)
+    if any(not torch.equal(served[k], selected[k]) for k in ("hm", "whoff")):
+        raise AssertionError("[quant_ft] (b) the installed forward differs from the selected params' forward")
+    rep = tuned["w4_adaround"][0].last_adaround_report
+    ratios = {k: v for k, v in rep.items() if not k.startswith("_")}
+    log(f"[quant_ft] (c) W4 AdaRound, {QFT_ADA_STEPS} steps: {len(ratios)} layers, ratios min "
+        f"{min(ratios.values()):.4g} median {float(np.median(list(ratios.values()))):.4g} max "
+        f"{max(ratios.values()):.4g}; accepted {rep['_accepted']}; end-to-end loss of the W4 nearest-rounding "
+        f"detector {rep['_e2e_first']:.6g}, after AdaRound {rep['_e2e_last']:.6g}")
+    if not ratios or max(ratios.values()) > 1.0:
+        raise AssertionError(f"[quant_ft] (c) a layer's ratio above 1: {ratios}")
+    log(f"[quant_ft] seconds on the card: calibration {secs['calibration']:.2f}; quantize with QAT "
+        f"{secs['w8_qat']:.2f}; quantize with W4 AdaRound {secs['w4_adaround']:.2f} (each includes its own "
+        f"calibration)")
+
+    # (d) both tuned detectors on both routes: the B7 route installs the
+    # persisted pair with fused_blocks=True
+    dets = {}
+    for name, (det, s) in tuned.items():
+        dets[name, "library"] = det
+        dets[name, "b7"] = Detector.from_safetensors(FLAGSHIP, cfg)
+        dets[name, "b7"].quantize(scales=s, quant_params=det.quant_variables, fused_blocks=True)
+        if dets[name, "b7"]._quant.fused_block_indices() != QUANT_S1_BLOCKS:
+            raise AssertionError(f"[quant_ft] {name}: the B7 route does not take the ten residual blocks")
+    b640, g640 = paint_batch(33, 32, (640, 640))
+    zero_launches()
+    runs = {key: d.detect_batch(b640, score_thresh=0.05) for key, d in dets.items()}
+    launches = read_launches()
+    want = launch_counts(decode_feats_fused=len(dets), int8_block_s1=len(QUANT_S1_BLOCKS) * len(tuned))
+    log(f"[quant_ft] (d) the tuned detectors, both routes, bs32@640: kernel launches {launches}")
+    if launches != want:
+        raise AssertionError(f"[quant_ft] (d) launches {launches}; wanted {want}")
+    for (name, route), r in runs.items():
+        check_result(r, g640, [(640, 640)] * 32, f"[quant_ft] {name} {route} route bs32 640x640")
+    for name in tuned:
+        n, bad = count_unmatched(runs[name, "b7"], runs[name, "library"])
+        log(f"[quant_ft] (d) {name}: B7 route against the library route, {bad} of {n} detections >= {BF16_FIRM} "
+            f"without a partner")
+        if n < 100 or bad > (1.0 - B7_MATCH_SHARE) * n:
+            raise AssertionError(f"[quant_ft] (d) {name}: the B7 route differs on {bad} of {n}")
+
+    # (e) persistence, outside the count
+    before = read_launches()
+    workdir = os.path.join(ROOT, "build", "quant_ft_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    det, s = tuned["w8_qat"]
+    path = os.path.join(workdir, "qat.safetensors")
+    save_safetensors(det.quant_variables, path)
+    fresh = Detector.from_safetensors(FLAGSHIP, cfg)
+    fresh.quantize(scales=s, quant_params=load_safetensors(path))
+    for a, b in zip(fresh.detect_batch(b640, score_thresh=0.05), runs["w8_qat", "library"]):
+        if not (np.array_equal(a.scores, b.scores) and np.array_equal(a.boxes, b.boxes)):
+            raise AssertionError("[quant_ft] (e) quant_variables reinstalled: detections differ")
+    packed = os.path.join(workdir, "w4.npz")
+    sizes = save_packed_weights(dets["w4_adaround", "b7"], packed)
+    fresh = Detector.from_safetensors(FLAGSHIP, cfg)
+    ps, pq = load_packed_weights(packed)
+    fresh.quantize(scales=ps, quant_params=pq, fused_blocks=True)
+    for a, b in zip(fresh.detect_batch(b640, score_thresh=0.05), runs["w4_adaround", "b7"]):
+        if not (np.array_equal(a.scores, b.scores) and np.array_equal(a.boxes, b.boxes)):
+            raise AssertionError("[quant_ft] (e) the packed W4 artifact reloaded: detections differ")
+    log(f"[quant_ft] (e) quant_variables and the packed W4 artifact reload bit-equal on the card; packed "
+        f"{sizes['packed_bytes']} bytes against {sizes['f32_bytes']} of float32 params")
+    if sizes["packed_bytes"] >= 0.5 * sizes["f32_bytes"]:
+        raise AssertionError(f"[quant_ft] (e) the W4 artifact is not under half the float32 bytes: {sizes}")
+
+    # readings: the B7 route at bs32 @ 640, tuned W8, tuned W4 and the PTQ
+    # detector in turns (the same program: expected equal within noise)
+    order = [("ptq", ptq_b7), ("w8_qat", dets["w8_qat", "b7"]), ("w4_adaround", dets["w4_adaround", "b7"])]
+    times = {name: [] for name, _ in order}
+    for name, d in order + order[::-1]:
+        times[name].extend(cuda_times(lambda d=d: d.detect_batch(b640, score_thresh=0.05), iters=10))
+    rates = {name: {"p50_ms": float(np.median(t)), "min_ms": min(t), "max_ms": max(t),
+                    "img_s": 32e3 / float(np.median(t))} for name, t in times.items()}
+    for name, fn in kernel_wrappers().items():
+        fn.launches = before[name]
+    log(f"[quant_ft] readings, detect_batch bs32@640 on the B7 route, 20 calls each in two turns ({smi}): "
+        + json.dumps(rates))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def normalize_raw(det, imgs, dev):
     """The identity-path input of `det` for uint8 images at its size."""
     from tpucenterface_torch.preprocess import normalize_images
@@ -2998,7 +3244,8 @@ def main() -> int:
              phase_eval(det, det_fast, det_cpu, smi),
              phase_main_large(large_dets, feats_imgs, x_large),
              phase_serving(cfg, det, det_fast, quant_dets["b7"], smi),
-             phase_train(cfg, smi)]
+             phase_train(cfg, smi),
+             phase_quant_ft(cfg, smi, quant_dets["b7"])]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

@@ -423,9 +423,12 @@ def test_quantize_guards(small_det_inputs):
     det = _small_det()
     with pytest.raises(ValueError, match="calib_images"):
         det.quantize()
-    for kw in (dict(qat_steps=2), dict(adaround_steps=2), dict(quant_params={})):
-        with pytest.raises(NotImplementedError):
-            det.quantize(calib_images=calib, **kw)
+    # the JAX guards of the fine-tuning arguments (tests/test_torch_qat.py runs them)
+    for kw in (dict(qat_steps=2), dict(adaround_steps=2)):
+        with pytest.raises(ValueError, match="qat_steps/adaround_steps need calibration batches"):
+            det.quantize(scales={"stem": 1.0}, **kw)
+    with pytest.raises(ValueError, match="quant_params requires scales"):
+        det.quantize(calib_images=calib, quant_params={})
     with pytest.raises(ValueError, match="int8_dw"):
         det.quantize(calib_images=calib, fused_blocks=True)
     assert det._quant is None and det.weights_version == 0
@@ -445,7 +448,8 @@ def test_import_leaves_jax_out():
         "tpucenterface_torch.ops.planar_mbconv, tpucenterface_torch.model.planar_engine, "
         "tpucenterface_torch.quant, tpucenterface_torch.quant.engine, tpucenterface_torch.quant.int8_ops, "
         "tpucenterface_torch.ops.int8_conv, tpucenterface_torch.ops.int8_block, tpucenterface_torch.weights.convert, "
-        "tpucenterface_torch.weights.io, tpucenterface_torch.kernels.sweep_b7; "
+        "tpucenterface_torch.weights.io, tpucenterface_torch.kernels.sweep_b7, "
+        "tpucenterface_torch.quant.qat, tpucenterface_torch.quant.adaround; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

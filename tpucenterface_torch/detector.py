@@ -4,8 +4,9 @@ Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
 `from_safetensors`, `_decode`, `_forward`, `results_to_detections`,
 `_identity_for`, `_get_or_build`, `_single_fn`, `_batch_fn`,
 `_batch_fn_auto`, `_batch_flip_fn`, `reload_weights`, `weights_version`,
-`detect`, `detect_batch`, `warmup`, `quantize`, `dequantize`,
-`stem_input_lut`), `stage_inputs` and `_export_scales`:
+`detect`, `detect_batch`, `warmup`, `quantize`, `quant_variables`,
+`last_qat_metrics`, `last_adaround_report`, `dequantize`, `stem_input_lut`),
+`stage_inputs` and `_export_scales`:
 
     host:   zero-pad the frame to a shape bucket, copy to the device
     device: letterbox+normalize -> backbone -> neck -> heads -> decode
@@ -36,7 +37,12 @@ Two switches of the config choose kernels of the port:
 calibrated on uint8 frames or installed from persisted scales;
 `quantize(fused_blocks=True)` (with `int8_dw=True`) runs its stride-1
 residual blocks through the int8 block kernel (`ops.int8_block`).
-`dequantize()` returns to the bf16 forward.
+`quantize(adaround_steps=, qat_steps=)` fine-tunes the engine's weights on
+the calibration frames (`quant.adaround`, then `quant.qat`; reports in
+`last_adaround_report` and `last_qat_metrics`), and `quantize(scales=,
+quant_params=)` installs a persisted pair (`quant_variables`, or
+`weights.io.load_packed_weights`). `dequantize()` returns to the bf16
+forward.
 
 Swaps are atomic, as in the JAX Detector: `reload_weights`, `quantize` and
 `dequantize` build their new state first, then assign every field, bump
@@ -50,10 +56,7 @@ stages a launch into XLA's preferred input layouts, the port stages it
 through a ring of reused pinned host buffers and a copy stream
 (`PinnedStaging`), so that the copy of launch N+1 runs beside program N.
 
-Not ported yet: `from_torch_pth`, the space-to-depth stem, and of `quantize`
-the QAT and AdaRound fine-tuning and the installation of fine-tuned
-parameters (`qat_steps`, `adaround_steps`, `quant_params` raise
-`NotImplementedError`).
+Not ported yet: `from_torch_pth` and the space-to-depth stem.
 """
 
 from __future__ import annotations
@@ -82,7 +85,9 @@ from tpucenterface_torch.preprocess import (
     normalize_images,
     pad_to_bucket,
 )
+from tpucenterface_torch.quant.adaround import adaround
 from tpucenterface_torch.quant.engine import QuantEngine, stem_input_lut
+from tpucenterface_torch.quant.qat import qat_finetune
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_safetensors
 
@@ -286,6 +291,8 @@ class Detector:
         else:
             self.model = load_network(variables, self.config.model, self.device)
         self._quant: Optional[QuantEngine] = None  # set by quantize()
+        self.last_qat_metrics = None  # quantize(qat_steps=) metrics
+        self.last_adaround_report = None  # quantize(adaround_steps=) report
         self._stem_lut: Optional[np.ndarray] = None
         # bumped on every weight or forward swap (reload_weights, quantize,
         # dequantize); the program cache and callers that cache anything
@@ -349,6 +356,7 @@ class Detector:
         scales: Optional[Dict[str, Any]] = None,
         calib_percentile: Optional[float] = None,
         qat_steps: int = 0,
+        qat_lr: float = 1e-4,
         adaround_steps: int = 0,
         quant_params: Optional[Dict[str, Any]] = None,
         weight_bits: int = 8,
@@ -364,10 +372,19 @@ class Detector:
         depthwise convs in int8 too, with per-channel scales. weight_bits: 8
         down to 2. calib_percentile: clip-calibrate at that percentile of
         |x|. fused_blocks (needs int8_dw): the stride-1 residual blocks run
-        through the int8 block kernel. The bf16 weights stay; dequantize()
-        returns to them."""
-        if qat_steps or adaround_steps or quant_params is not None:
-            raise NotImplementedError("the port has no QAT or AdaRound fine-tuning yet")
+        through the int8 block kernel.
+
+        Fine-tuning on the calibration batches, in the JAX order:
+        adaround_steps > 0 learns each weight's rounding (`quant.adaround`;
+        the learned rounding rides the returned scales' "w:<tag>" entries and
+        the engine's on-grid params, report in `last_adaround_report`), then
+        qat_steps > 0 bias-corrects and STE-fine-tunes at qat_lr
+        (`quant.qat`, distilling toward the params from before AdaRound;
+        metrics in `last_qat_metrics`). Both run on the engine's per-conv
+        route; under fused_blocks the block kernel then serves the tuned
+        weights. Persist the scales and `quant_variables`, and install both
+        with quantize(scales=..., quant_params=...). The bf16 weights stay;
+        dequantize() returns to them."""
         model = self.config.model
         if not model.folded:
             raise ValueError("quantize() requires folded inference weights")
@@ -386,7 +403,22 @@ class Detector:
             self.variables, model, int8_dw=int8_dw, pp_cfg=self.config.preprocess, weight_bits=weight_bits,
             fused_blocks=fused_blocks, device=self.device,
         )
+        if quant_params is not None:
+            if scales is None:
+                raise ValueError(
+                    "quant_params requires scales= (pass the persisted pair exported by quantize(); recalibrating "
+                    "on top of fine-tuned params would corrupt both the weight scales and the distillation "
+                    "teacher)"
+                )
+            if "params" in quant_params and "backbone" not in quant_params:
+                quant_params = quant_params["params"]
+            eng.p = quant_params
         if scales is not None:
+            if qat_steps or adaround_steps:
+                raise ValueError(
+                    "qat_steps/adaround_steps need calibration batches (pass calib_images/calib_batches); with "
+                    "persisted scales, install the persisted fine-tuned params via quant_params= instead"
+                )
             eng.set_scales(scales)
         else:
             if calib_batches is not None:
@@ -401,11 +433,26 @@ class Detector:
             else:
                 raise ValueError("pass calib_images (uint8), calib_batches, or scales")
             eng.calibrate(xs, percentile=calib_percentile)
+            float_params = eng.p  # the float model before fine-tuning: QAT's teacher
+            if adaround_steps:
+                self.last_adaround_report = adaround(eng, xs, steps=adaround_steps)
+            if qat_steps:
+                self.last_qat_metrics = qat_finetune(eng, xs, steps=qat_steps, lr=qat_lr, teacher_params=float_params)
         with self._fn_lock:
             self._quant = eng
             self.weights_version += 1
             self._fn_cache.clear()  # programs rebuild on the int8 forward
         return _export_scales(eng)
+
+    @property
+    def quant_variables(self) -> Dict[str, Any]:
+        """{"params": ...} of the active int8 forward: the engine's params,
+        which differ from the Detector's after fine-tuning. Persist with
+        `weights.io.save_safetensors` and reinstall with
+        quantize(scales=..., quant_params=...)."""
+        if self._quant is None:
+            raise ValueError("quant_variables requires a quantize()d detector")
+        return {"params": self._quant.p}
 
     def dequantize(self) -> None:
         """Return to the bf16 forward."""

@@ -1,8 +1,8 @@
 """W8A8 post-training quantized inference engine.
 
 Mirrors `tpucenterface/quant/engine.py` (`stem_fixed_scale`, `stem_input_lut`,
-`apply_stem_lut`, `_quantize_weight`, `QuantEngine`). One traversal drives
-three modes:
+`apply_stem_lut`, `_quantize_weight` as `quantize_weight_t`, `fake_quant`,
+`fake_quant_weight`, `QuantEngine`). One traversal drives four modes:
 - 'float'     : the bf16 folded forward (bf16 operands, float32 sums);
 - 'calibrate' : the same forward, recording each conv input's absolute
                 maximum (or a percentile of it);
@@ -11,7 +11,14 @@ three modes:
                 convs under `int8_dw`), int32 sums (`quant.int8_ops`), a
                 float32 epilogue `acc * (sx * sw) + b`, the activation, and
                 either a bf16 output or, where the consumer is quantized too,
-                the consumer's int8 input (`out_int8_tag` chaining).
+                the consumer's int8 input (`out_int8_tag` chaining);
+- 'fakequant' : the differentiable float32 simulation of 'quant' that QAT
+                descends (`quant.qat`): each quantized conv's input and
+                weight go through `fake_quant` / `fake_quant_weight`
+                (straight-through gradients), every conv runs in float32,
+                a chained output is returned fake-quantized in float32, and
+                every other output is written at `out_dtype` (bf16), as the
+                JAX engine writes it.
 Scale conventions: symmetric, x_q = clip(round(x / s), -127, 127), round half
 to even. Tensors are NHWC.
 
@@ -27,8 +34,10 @@ Where the arithmetic has to be copied exactly (the CPU tests hold the port to
 the JAX engine bit for bit):
 - a per-tensor scale is `float32(s / 127)`, divided in float64 and rounded
   once; a per-channel scale is `float32(s) / 127` divided in float32; the
-  epilogue scale `sx * sw` is a float32 product. Scales are formed in numpy on
-  the host and moved to the device as tensors;
+  epilogue scale `sx * sw` is a float32 product. Activation scales are
+  formed in numpy on the host and moved to the device as tensors; the int8
+  weights and their scales are formed on the device by `quantize_weight_t`,
+  one rule for the installed weights and for a tree's (`_quant_operands`);
 - the quantizing divisions divide by a tensor on the tensor's own device:
   PyTorch's CUDA division by a CPU scalar multiplies by its reciprocal, which
   can round differently;
@@ -39,8 +48,30 @@ the JAX engine bit for bit):
   take in different orders; compare the two devices under one `set_scales`
   dict, not under two calibrations.
 
-Left for later: the `fakequant` mode (QAT), the AdaRound capture and the
-bias-correction collectors.
+The parameters (`p`, the JAX layout with the fused heads, float32 tensors on
+the engine's device) are the engine's state: setting `p` rebuilds the conv
+table and, on a calibrated engine, re-installs the int8 weights and the block
+kernel's packed operands, so `fused_blocks=True` serves what was set.
+`_forward(x, mode)` runs on the installed weights; `_forward(x, mode,
+params=tree)` forms every weight from `tree` on each call (quantized on the
+device where the mode is 'quant'), which is what the fine-tuning loops
+(`quant.qat`, `quant.adaround`) differentiate and select on; those always
+run the per-conv route, as the JAX engine does. Two hooks serve them:
+- `_bc_collector` (a dict, or None): in the float and quant modes each conv
+  writes its per-channel pre-activation mean into it;
+- `_cap_tag` / `_cap_out`: the conv `_cap_tag` names writes, in quant
+  mode, its int8 input `xq`, its input scale `sx`, stride, groups and
+  activation into `_cap_out`, and in float mode its float32 post-activation
+  output `y` (the JAX engine's "*", every conv in one forward, serves its
+  jitted captures; the port captures one conv a forward).
+`_forward(..., weight_scales=w)` installs `w` as the fixed weight scales for
+the length of one forward.
+
+The activations of the 'fakequant' mode give JAX's gradient at ties:
+min(max(y, 0), 6) and max(y, 0) split it evenly where y is exactly 0 or 6,
+which fake-quantized inputs make common; clamp and relu would not. Float32
+convolutions on the card run in TF32 unless the caller turns it off
+(`torch.backends.cudnn.allow_tf32`); the engine changes no global flag.
 """
 
 from __future__ import annotations
@@ -90,18 +121,110 @@ def apply_stem_lut(imgs_u8: np.ndarray, lut: np.ndarray) -> np.ndarray:
     return out
 
 
-def _quantize_weight(k: np.ndarray, fixed_scale=None, qmax: int = 127):
-    """Per-output-channel symmetric weight quantization of an HWIO kernel ->
-    (int8 kernel, float32 scales). qmax 127 for int8 weights, 7 for int4
-    (still held in int8). `fixed_scale` overrides the per-channel scale."""
-    k = np.asarray(k, np.float32)
+def _f32(v, device) -> torch.Tensor:
+    """`v` (a number, numpy array or tensor) as a float32 tensor on
+    `device`; a number or array is rounded to float32 first."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.asarray(v, np.float32))
+    return v.to(device=device, dtype=torch.float32)
+
+
+def quantize_weight_t(k: torch.Tensor, fixed_scale=None, qmax: int = 127):
+    """Per-output-channel symmetric weight quantization of an HWIO kernel
+    tensor (the JAX package's `_quantize_weight`) -> (int8 kernel, float32
+    scales), on the kernel's device. qmax 127 for int8 weights, 7 for int4
+    (still held in int8). `fixed_scale` overrides the per-channel scale.
+    Each division is by a tensor: PyTorch's CUDA division by a host scalar
+    multiplies by its reciprocal, which can round differently."""
+    k = k.detach().float()
     if fixed_scale is not None:
-        sw = np.asarray(fixed_scale, np.float32)
+        sw = _f32(fixed_scale, k.device)
     else:
-        amax = np.max(np.abs(k), axis=(0, 1, 2))
-        sw = np.maximum(amax, np.float32(1e-8)) / np.float32(qmax)
-    kq = np.clip(np.round(k / sw), -qmax, qmax).astype(np.int8)
-    return kq, sw.astype(np.float32)
+        amax = k.abs().amax(dim=(0, 1, 2))
+        sw = torch.maximum(amax, _f32(1e-8, k.device)) / _f32(qmax, k.device)
+    kq = torch.round(k / sw).clamp_(-qmax, qmax).to(torch.int8)
+    return kq, sw
+
+
+def fake_quant(x: torch.Tensor, s, qmax: int = 127) -> torch.Tensor:
+    """Differentiable quantize-dequantize with a straight-through estimator:
+    the value clip(round(x / s), -qmax, qmax) * s, written as
+    x + (y - x) with the difference outside autograd, so the gradient is 1
+    where x / s lies in [-qmax, qmax] (bounds included) and 0 where the clip
+    saturates. The scale gets no gradient. `s`: a tensor on x's device, or a
+    number or array (copied there). float32 arithmetic, as in the JAX
+    function."""
+    s = _f32(s, x.device).detach()
+    qmax = float(qmax)
+    x32 = x.float()
+    q = x32 / s
+    y = torch.round(q).clamp(-qmax, qmax) * s
+    in_range = (q >= -qmax) & (q <= qmax)
+    return torch.where(in_range, x32 + (y - x32).detach(), y.detach())
+
+
+def fake_quant_weight(k: torch.Tensor, fixed_scale=None, qmax: int = 127) -> torch.Tensor:
+    """STE fake-quant of an HWIO kernel with `quantize_weight_t`'s
+    per-output-channel scale rule (or `fixed_scale`); the scale, derived from
+    the live weights, gets no gradient."""
+    k32 = k.float()
+    if fixed_scale is not None:
+        sw = _f32(fixed_scale, k.device)
+    else:
+        amax = k32.detach().abs().amax(dim=(0, 1, 2))
+        sw = torch.maximum(amax, _f32(1e-8, k.device)) / _f32(qmax, k.device)
+    return fake_quant(k32, sw, qmax)
+
+
+def conv_nhwc(x: torch.Tensor, k: torch.Tensor, stride: int, groups: int) -> torch.Tensor:
+    """NHWC conv of `x` with the HWIO kernel `k`, padding (kh - 1) // 2, in
+    the operands' dtype."""
+    pad = (k.shape[0] - 1) // 2
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), None, stride, pad, 1, groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def clip_ties(y: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """min(max(y, lo), hi): `jnp.clip`, whose gradient is split evenly at
+    y = lo and y = hi as JAX's is (clamp passes it whole)."""
+    return torch.minimum(torch.maximum(y, y.new_full((), lo)), y.new_full((), hi))
+
+
+def relu_ties(y: torch.Tensor) -> torch.Tensor:
+    """max(y, 0), its gradient split evenly at y = 0 as JAX's is."""
+    return torch.maximum(y, y.new_zeros(()))
+
+
+def conv_node_paths(plan) -> Dict[str, Tuple[str, ...]]:
+    """{tag: path of the {'kernel', 'bias'} node} of every conv of the engine
+    graph, in the order of `tpucenterface/quant/qat.py::_bias_paths`: stem,
+    each block's expand, depthwise and project, every lateral, the smooth
+    convs, head.conv, head.out (AdaRound reconstructs in this order)."""
+    paths: Dict[str, Tuple[str, ...]] = {"stem": ("backbone", "stem", "conv")}
+    strides = []
+    for i, (t, _, _, out_stride) in enumerate(plan):
+        blk = ("backbone", f"block_{i}")
+        if t != 1:
+            paths[f"b{i}.expand"] = blk + ("expand", "conv")
+        paths[f"b{i}.dw"] = blk + ("depthwise", "conv")
+        paths[f"b{i}.project"] = blk + ("project", "conv")
+        if _is_skip(plan, i):
+            strides.append(out_stride)
+    strides = sorted(strides, reverse=True)
+    for s in strides:
+        paths[f"lat{s}"] = ("neck", f"lateral_{s}", "conv")
+    for s in strides[1:]:
+        paths[f"smooth{s}"] = ("neck", f"smooth_{s}", "conv")
+    paths["head.conv"] = ("heads", "fused", "conv")
+    paths["head.out"] = ("heads", "fused", "out")
+    return paths
+
+
+def _tree_get(tree, path: Tuple[str, ...]):
+    """Read a nested-dict leaf (or node) by path."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def percentile_linear(a: torch.Tensor, q: float, dim: Optional[int] = None) -> torch.Tensor:
@@ -123,17 +246,15 @@ def percentile_linear(a: torch.Tensor, q: float, dim: Optional[int] = None) -> t
 
 
 class _Conv:
-    """One conv of the engine graph: HWIO float32 kernel, bias, stride,
-    groups, and its float-mode weight (bf16-rounded, OIHW, float32)."""
+    """One conv of the engine graph: its parameter tensors (`kernel_t`, HWIO
+    float32, and `bias`), stride, groups, and its float-mode weight
+    (bf16-rounded, OIHW, float32), all on the engine's device."""
 
-    def __init__(self, kernel, bias, stride, groups, device):
-        self.kernel = np.asarray(kernel, np.float32)
-        self.bias_np = np.asarray(bias, np.float32)
+    def __init__(self, kernel: torch.Tensor, bias: torch.Tensor, stride, groups):
+        self.kernel_t, self.bias = kernel, bias
         self.stride, self.groups = stride, groups
-        self.kh = self.kernel.shape[0]
-        w = torch.from_numpy(np.ascontiguousarray(self.kernel.transpose(3, 2, 0, 1)))
-        self.w_float = w.to(torch.bfloat16).float().to(device)
-        self.bias = torch.from_numpy(self.bias_np).to(device)
+        self.kh = kernel.shape[0]
+        self.w_float = kernel.permute(3, 2, 0, 1).to(torch.bfloat16).float().contiguous()
 
 
 class QuantEngine:
@@ -165,7 +286,34 @@ class QuantEngine:
         self.wqmax = 2 ** (self.weight_bits - 1) - 1
         self.skip_tags = frozenset(skip_tags)
         self.fused_blocks = fused_blocks
-        params = _np_tree(folded_variables["params"])
+        self.plan = backbone_plan(cfg)
+        self.act_scales: Optional[Dict[str, Any]] = None
+        self.weight_scales: Dict[str, Any] = {}
+        self._amax: Dict[str, Any] = {}
+        self._calib_percentile: Optional[float] = None
+        self.pp_cfg = pp_cfg
+        self._collector: Dict[str, torch.Tensor] = {}  # conv input statistics of a calibrate forward
+        self._bc_collector: Optional[Dict[str, torch.Tensor]] = None  # pre-activation means (quant.qat)
+        self._cap_tag: Optional[str] = None  # conv whose input or output a forward captures (quant.adaround)
+        self._cap_out: Dict[str, Any] = {}
+        self._q: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._sx: Dict[str, torch.Tensor] = {}
+        self._qsx: Dict[str, torch.Tensor] = {}  # each quantized conv's input scale
+        self._ws: Dict[str, Tuple[Any, torch.Tensor]] = {}  # tag: (weight_scales entry, its device tensor)
+        self._block_args: Dict[int, Tuple[float, Any]] = {}  # block: (inv_se, PackedInt8BlockS1)
+        self.p = folded_variables["params"]
+
+    @property
+    def p(self) -> Dict[str, Any]:
+        """The engine's parameters: the folded tree in the JAX layout with the
+        fused heads, float32 tensors on the engine's device."""
+        return self._p
+
+    @p.setter
+    def p(self, params: Dict[str, Any]) -> None:
+        """Install `params` (numpy arrays or tensors; heads fused here if they
+        are not): rebuild the conv table and, on a calibrated engine, the
+        int8 weights and the block kernel's packed operands."""
         if "fused" not in params.get("heads", {}):
             names = [n for n in ("hm", "wh", "off", "lm") if n in params["heads"]]
             if any("conv" not in params["heads"][n] for n in names):
@@ -173,40 +321,27 @@ class QuantEngine:
                     "QuantEngine requires head_conv > 0 (fused-head form needs the hidden head conv); "
                     "this model has single-1x1 heads"
                 )
-            params["heads"] = {"fused": fuse_head_params(params["heads"], names)}
-        self.plan = backbone_plan(cfg)
-        self.act_scales: Optional[Dict[str, Any]] = None
-        self.weight_scales: Dict[str, Any] = {}
-        self._amax: Dict[str, Any] = {}
-        self._calib_percentile: Optional[float] = None
-        self.pp_cfg = pp_cfg
-        self.convs = self._conv_table(params)
-        self._collector: Dict[str, torch.Tensor] = {}  # conv input statistics of a calibrate forward
-        self._q: Dict[str, Dict[str, torch.Tensor]] = {}
-        self._sx: Dict[str, torch.Tensor] = {}
-        self._block_args: Dict[int, Tuple[float, Any]] = {}  # block: (inv_se, PackedInt8BlockS1)
+            params = dict(params, heads={"fused": fuse_head_params(_np_tree(params["heads"]), names)})
+        self._p = _tensor_tree(params, self.device)
+        self.convs = self._conv_table(self._p)
+        if self.act_scales is not None:
+            self._install()
+
+    def conv_paths(self) -> Dict[str, Tuple[str, ...]]:
+        """{tag: path of its {'kernel', 'bias'} node in `p`} (`conv_node_paths`)."""
+        return conv_node_paths(self.plan)
 
     def _conv_table(self, params) -> Dict[str, _Conv]:
         """{tag: _Conv} of every conv of the folded, head-fused `params`."""
-        bb, nk, hf = params["backbone"], params["neck"], params["heads"]["fused"]
-        dev = self.device
-
-        def node(n, stride=1, groups=1):
-            return _Conv(n["conv"]["kernel"], n["conv"]["bias"], stride, groups, dev)
-
-        convs = {"stem": node(bb["stem"], stride=2)}
-        for i, (t, _, s, _) in enumerate(self.plan):
-            blk = bb[f"block_{i}"]
-            if t != 1:
-                convs[f"b{i}.expand"] = node(blk["expand"])
-            ce = np.shape(blk["depthwise"]["conv"]["kernel"])[-1]
-            convs[f"b{i}.dw"] = node(blk["depthwise"], stride=s, groups=ce)
-            convs[f"b{i}.project"] = node(blk["project"])
-        for key in nk:
-            kind, s = key.split("_")
-            convs[f"{'lat' if kind == 'lateral' else 'smooth'}{s}"] = node(nk[key])
-        convs["head.conv"] = _Conv(hf["conv"]["kernel"], hf["conv"]["bias"], 1, 1, dev)
-        convs["head.out"] = _Conv(hf["out"]["kernel"], hf["out"]["bias"], 1, 1, dev)
+        convs = {}
+        for tag, path in self.conv_paths().items():
+            n = _tree_get(params, path)
+            stride, groups = 1, 1
+            if tag == "stem":
+                stride = 2
+            elif tag.endswith(".dw"):
+                stride, groups = self.plan[int(tag[1:-3])][2], n["kernel"].shape[-1]
+            convs[tag] = _Conv(n["kernel"], n["bias"], stride, groups)
         return convs
 
     def _stem_fixed_scale(self) -> float:
@@ -218,8 +353,7 @@ class QuantEngine:
         return stem_fixed_scale(self.pp_cfg)
 
     # ------------------------------------------------------------------ #
-    # scales and quantized weights, formed on the host as the JAX engine
-    # forms them
+    # scales and quantized weights
     # ------------------------------------------------------------------ #
 
     def act_scale(self, tag: str):
@@ -241,9 +375,11 @@ class QuantEngine:
         """Whether `tag` runs as an int8 conv in quant mode."""
         return (self.convs[tag].groups == 1 or self.int8_dw) and tag not in self.skip_tags
 
-    def quant_weight(self, tag: str):
-        """(int8 HWIO kernel, float32 per-output-channel scales) of `tag`."""
-        return _quantize_weight(self.convs[tag].kernel, self.weight_scales.get(tag), self.wqmax)
+    def quant_weight(self, tag: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(int8 HWIO kernel, float32 per-output-channel scales) of `tag` as
+        the installed weights are formed, copied to the host."""
+        kq, sw = quantize_weight_t(self.convs[tag].kernel_t, self._weight_scale_t(tag), self.wqmax)
+        return kq.cpu().numpy(), sw.cpu().numpy()
 
     def _install(self) -> None:
         """Device tensors of the installed scales: each quantized conv's int8
@@ -254,25 +390,10 @@ class QuantEngine:
         from tpucenterface_torch.weights.convert import int8_block_args
 
         dev = self.device
-        self._q, self._sx = {}, {}
-        for tag, cv in self.convs.items():
-            if tag in self.act_scales:
-                self._sx[tag] = torch.tensor(self.act_scale(tag), device=dev)
-            if not self.quantizes(tag):
-                continue
-            kq, sw = self.quant_weight(tag)
-            if cv.groups > 1:
-                w = torch.from_numpy(np.ascontiguousarray(kq[:, :, 0, :])).to(dev)
-            elif cv.kh == 1:  # (Cin, Cout), held column-major as the int8 product takes it
-                w = torch.from_numpy(np.ascontiguousarray(kq[0, 0].T)).to(dev).t()
-            else:
-                w = torch.from_numpy(kq).to(dev)
-            sx = self.input_scale(tag)
-            self._q[tag] = {
-                "w": w,
-                "sx": torch.tensor(sx, device=dev),
-                "scale": torch.from_numpy(np.asarray(sx * sw, np.float32)).to(dev),
-            }
+        self._ws = {tag: (sw, _f32(sw, dev)) for tag, sw in self.weight_scales.items()}
+        self._sx = {tag: torch.tensor(self.act_scale(tag), device=dev) for tag in self.convs if tag in self.act_scales}
+        self._qsx = {tag: torch.tensor(self.input_scale(tag), device=dev) for tag in self.convs if self.quantizes(tag)}
+        self._q = {tag: self._quant_operands(tag, self.convs[tag].kernel_t) for tag in self._qsx}
         # inv_se stays a host float: the kernel takes it by value
         self._block_args = {}
         for i in self.fused_block_indices():
@@ -296,6 +417,32 @@ class QuantEngine:
 
     # ------------------------------------------------------------------ #
 
+    def _weight_scale_t(self, tag: str) -> Optional[torch.Tensor]:
+        """The fixed weight scale of `tag` as a device tensor, or None: the
+        tensor cached at install when the entry is the installed one, so a
+        forward on a tree copies nothing from the host."""
+        v = self.weight_scales.get(tag)
+        if v is None or isinstance(v, torch.Tensor):
+            return v
+        hit = self._ws.get(tag)
+        return hit[1] if hit is not None and hit[0] is v else _f32(v, self.device)
+
+    def _quant_operands(self, tag: str, k: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The int8 operands of `tag` formed from the kernel tensor `k` on
+        the device, for the installed weights and for a tree's alike: the
+        int8 weight in its op's layout, the input scale and the epilogue
+        scale `sx * sw`."""
+        cv = self.convs[tag]
+        kq, sw = quantize_weight_t(k, self._weight_scale_t(tag), self.wqmax)
+        if cv.groups > 1:
+            w = kq[:, :, 0, :]
+        elif cv.kh == 1:  # (Cin, Cout), held column-major as the int8 product takes it
+            w = kq[0, 0].t().contiguous().t()
+        else:
+            w = kq
+        sx = self._qsx[tag]
+        return {"w": w, "sx": sx, "scale": sx * sw}
+
     def _conv(
         self,
         tag: str,
@@ -304,38 +451,70 @@ class QuantEngine:
         act: str,
         out_dtype=torch.bfloat16,
         out_int8_tag: Optional[str] = None,
+        params: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """One conv of the engine graph (`engine.py:233-424` of the JAX
-        package, modes float, calibrate and quant). out_int8_tag: in quant
-        mode, emit the consumer's int8 input from this conv's epilogue."""
+        package). out_int8_tag: in the quant and fakequant modes, emit the
+        consumer's (fake-)quantized input from this conv's epilogue.
+        params: the tree to form the weights from; None takes the installed
+        ones."""
         cv = self.convs[tag]
-        quantize = mode == "quant" and self.quantizes(tag)
-        if out_int8_tag is not None and (out_int8_tag in self.skip_tags or mode != "quant"):
+        quantize = mode in ("quant", "fakequant") and self.quantizes(tag)
+        if out_int8_tag is not None and (out_int8_tag in self.skip_tags or mode not in ("quant", "fakequant")):
             out_int8_tag = None
+        if params is not None:
+            node = _tree_get(params, self.conv_paths()[tag])
+            k, bias = node["kernel"], node["bias"].float()
+        else:
+            k, bias = cv.kernel_t, cv.bias
         if mode == "calibrate":
             self._collector[tag] = self._calib_stat(x, per_channel=cv.groups > 1 and self.int8_dw)
-        if quantize:
-            q = self._q[tag]
+        if quantize and mode == "fakequant":
+            xq = fake_quant(x, self._qsx[tag])
+            kq = fake_quant_weight(k, self._weight_scale_t(tag), self.wqmax)
+            y = conv_nhwc(xq, kq, cv.stride, cv.groups) + bias
+        elif quantize:
+            q = self._q[tag] if params is None else self._quant_operands(tag, k)
             if x.dtype == torch.int8:
                 xq = x  # the producer emitted this conv's quantization
             else:
                 xq = torch.round(x.float() / q["sx"]).clamp_(-127, 127).to(torch.int8)
+            if self._cap_tag == tag:
+                self._cap_out.update(xq=xq, sx=q["sx"], stride=cv.stride, groups=cv.groups, act=act)
             if cv.groups > 1:
                 acc = dwconv3x3_int8(xq, q["w"], cv.stride)
             elif cv.kh == 1:
                 acc = conv1x1_int8(xq, q["w"])
             else:
                 acc = conv3x3_int8(xq, q["w"], cv.stride)
-            y = acc.float().mul_(q["scale"]).add_(cv.bias)
+            y = acc.float().mul_(q["scale"]).add_(bias)
             del acc
+        elif mode == "fakequant":
+            # float32 convolutions on the differentiable path, quantized or not
+            y = conv_nhwc(x.float(), k.float(), cv.stride, cv.groups) + bias
         else:
             xin = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+            w = cv.w_float if params is None else k.permute(3, 2, 0, 1).to(torch.bfloat16).float()
             pad = (cv.kh - 1) // 2
-            y = F.conv2d(xin, cv.w_float, None, cv.stride, pad, 1, cv.groups).permute(0, 2, 3, 1) + cv.bias
+            y = F.conv2d(xin, w, None, cv.stride, pad, 1, cv.groups).permute(0, 2, 3, 1) + bias
+        if self._bc_collector is not None and mode in ("float", "quant"):
+            self._bc_collector[tag] = y.float().mean(dim=(0, 1, 2))
+        if mode == "fakequant":
+            if act == "relu6":
+                y = clip_ties(y, 0.0, 6.0)
+            elif act == "relu":
+                y = relu_ties(y)
+            if out_int8_tag is not None:
+                # the chained epilogue, from the float32 value; the consumer's
+                # own fake_quant at this scale is the identity on it
+                return fake_quant(y, self._sx[out_int8_tag])
+            return y.to(out_dtype)
         if act == "relu6":
             y = y.clamp_(0.0, 6.0)
         elif act == "relu":
             y = y.relu_()
+        if mode == "float" and self._cap_tag == tag:
+            self._cap_out["y"] = y.float()
         if out_int8_tag is not None:
             return torch.round(y.div_(self._sx[out_int8_tag])).clamp_(-127, 127).to(torch.int8)
         return y.to(out_dtype)
@@ -351,44 +530,63 @@ class QuantEngine:
 
     # ------------------------------------------------------------------ #
 
-    def run_block(self, i: int, y: torch.Tensor, mode: str = "quant") -> torch.Tensor:
-        """Backbone block `i` on its NHWC input `y`: in quant mode one launch
-        of the int8 block kernel where `fused_blocks` takes the block, else
-        its expand, depthwise and project convs and the skip add."""
+    def run_block(self, i: int, y: torch.Tensor, mode: str = "quant", params=None) -> torch.Tensor:
+        """Backbone block `i` on its NHWC input `y`: in quant mode on the
+        installed weights, one launch of the int8 block kernel where
+        `fused_blocks` takes the block and no collector or capture is on;
+        else its expand, depthwise and project convs and the skip add."""
         from tpucenterface_torch.ops.int8_block import int8_block_s1
 
-        if mode == "quant" and i in self._block_args:
+        hooked = self._bc_collector is not None or self._cap_tag is not None
+        if mode == "quant" and params is None and not hooked and i in self._block_args:
             inv_se, packed = self._block_args[i]
             return int8_block_s1(y, inv_se, packed)
         t, _, s, _ = self.plan[i]
         act = "relu6" if self.cfg.relu6 else "relu"
         z = y
         if t != 1:
-            z = self._conv(f"b{i}.expand", mode, z, act, out_int8_tag=f"b{i}.dw" if self.int8_dw else None)
-        z = self._conv(f"b{i}.dw", mode, z, act, out_int8_tag=f"b{i}.project")
-        z = self._conv(f"b{i}.project", mode, z, "none")
+            z = self._conv(f"b{i}.expand", mode, z, act, out_int8_tag=f"b{i}.dw" if self.int8_dw else None,
+                           params=params)
+        z = self._conv(f"b{i}.dw", mode, z, act, out_int8_tag=f"b{i}.project", params=params)
+        z = self._conv(f"b{i}.project", mode, z, "none", params=params)
         return y + z if s == 1 and y.shape[-1] == z.shape[-1] else z
 
-    def _forward(self, x: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
+    def _forward(
+        self, x: torch.Tensor, mode: str, params: Optional[Dict[str, Any]] = None, weight_scales=None
+    ) -> Dict[str, torch.Tensor]:
+        """The engine graph on the NHWC batch `x` in `mode`. params: a tree
+        in `p`'s layout to form every weight from on this call (None: the
+        installed weights; 'fakequant' then differentiates `p`).
+        weight_scales: fixed weight scales installed for this forward only."""
+        if weight_scales is not None:
+            saved, self.weight_scales = self.weight_scales, weight_scales
+            try:
+                return self._forward(x, mode, params)
+            finally:
+                self.weight_scales = saved
+        if mode in ("quant", "fakequant") and self.act_scales is None:
+            raise ValueError(f"the {mode} mode needs a calibrated engine: calibrate() or set_scales() first")
+        if mode == "fakequant" and params is None:
+            params = self.p
         cfg = self.cfg
         act = "relu6" if cfg.relu6 else "relu"
-        y = self._conv("stem", mode, x, act)
+        y = self._conv("stem", mode, x, act, params=params)
         feats: Dict[int, torch.Tensor] = {}
         for i, (_, _, _, out_stride) in enumerate(self.plan):
-            y = self.run_block(i, y, mode)
+            y = self.run_block(i, y, mode, params)
             if _is_skip(self.plan, i):
                 feats[out_stride] = y
 
         strides = sorted(feats, reverse=True)
-        y = self._conv(f"lat{strides[0]}", mode, feats[strides[0]], act)
+        y = self._conv(f"lat{strides[0]}", mode, feats[strides[0]], act, params=params)
         for s in strides[1:]:
-            lat = self._conv(f"lat{s}", mode, feats[s], act)
+            lat = self._conv(f"lat{s}", mode, feats[s], act, params=params)
             b, h, w, c = y.shape
             y = y[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c) + lat
-            y = self._conv(f"smooth{s}", mode, y, act)
+            y = self._conv(f"smooth{s}", mode, y, act, params=params)
 
-        z = self._conv("head.conv", mode, y, "relu", out_int8_tag="head.out")
-        out_full = self._conv("head.out", mode, z, "none", out_dtype=torch.float32)
+        z = self._conv("head.conv", mode, y, "relu", out_int8_tag="head.out", params=params)
+        out_full = self._conv("head.out", mode, z, "none", out_dtype=torch.float32, params=params)
         names = [("hm", cfg.num_classes), ("wh", 2), ("off", 2)]
         if cfg.with_landmarks:
             names.append(("lm", 10))
@@ -471,4 +669,23 @@ class QuantEngine:
 
 
 def _np_tree(tree):
-    return {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v, np.float32) for k, v in tree.items()}
+    return {k: _np_tree(v) if isinstance(v, dict) else _to_np(v) for k, v in tree.items()}
+
+
+def _to_np(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().float().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _tensor_tree(tree, device):
+    """The tree's leaves as float32 tensors on `device`, detached copies."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _tensor_tree(v, device)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().to(device=device, dtype=torch.float32).clone()
+        else:
+            out[k] = torch.from_numpy(np.array(v, np.float32)).to(device)
+    return out

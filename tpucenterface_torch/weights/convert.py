@@ -155,7 +155,7 @@ def int8_block_args(engine, i: int) -> Dict[str, Any]:
     tags = _block_tags(i)
     (ke, swe), (kd, swd), (kp, swp) = (engine.quant_weight(tag) for tag in tags)
     se, sdw, sp = (engine.act_scale(tag) for tag in tags)
-    bias = [engine.convs[tag].bias_np for tag in tags]
+    bias = [engine.convs[tag].bias.cpu().numpy() for tag in tags]
     one = np.float32(1.0)
     cmid = kd.shape[-1]
     args = {
@@ -186,5 +186,5 @@ def int8_conv_args(engine, i: int, consumer_tag: str) -> Dict[str, np.ndarray]:
     return {
         "w": np.ascontiguousarray(kq[0, 0].T),
         "scale": (engine.act_scale(tag) * sw) * inv,
-        "bias": engine.convs[tag].bias_np * inv,
+        "bias": engine.convs[tag].bias.cpu().numpy() * inv,
     }

@@ -19,6 +19,19 @@ that package reads what the port writes.
 `save_quant_scales` / `load_quant_scales` persist a quantized Detector's
 scales as JSON (`tpucenterface/weights/io.py:141-168`): floats for per-tensor
 entries, lists for the per-channel depthwise ones.
+
+`save_packed_weights` / `load_packed_weights` write and read the packed
+deployment artifact of a quantized Detector (`tpucenterface/weights/io.py:
+171-307`), one `.npz` in the JAX package's layout, so either package loads
+what the other wrote:
+
+    manifest   JSON as uint8: weight_bits, int8_dw, packed {tag: {path,
+               shape}}, leaves {"p/<path>": {path, dtype}}, act [tags]
+    g/<tag>    each quantized kernel's grid indices + qmax as uint8, two to
+               a byte (high nibble first) at weight_bits <= 4
+    s/<tag>    its per-output-channel scales, float32
+    p/<path>   every other leaf as stored (bfloat16 leaves as float32)
+    a/<tag>    the activation scales, float64
 """
 
 from __future__ import annotations
@@ -141,3 +154,101 @@ def load_quant_scales(path: str) -> Dict[str, Any]:
     with open(path) as f:
         raw = json.load(f)
     return {k: (np.asarray(v, np.float64) if isinstance(v, list) else float(v)) for k, v in raw.items()}
+
+
+def save_packed_weights(det, path: str) -> Dict[str, int]:
+    """Pack a quantize()d Detector's serving weights into one .npz (see the
+    module docstring): every kernel the quant forward quantizes as its grid
+    indices with its scale frozen beside it, the biases and other leaves
+    raw. Every process that loads the artifact serves the same program
+    (frozen "w:<tag>" scales make round(k / s) reproduce the grid); against
+    the packed Detector it is bit-equal where the scales were frozen already
+    (AdaRound) and equal to float dust elsewhere. Not a training
+    checkpoint: the float kernels are not recoverable.
+
+    Returns {"packed_bytes": size of the file, "f32_bytes": the params'
+    float32 footprint}."""
+    import io as _io
+
+    from tpucenterface_torch.quant.adaround import _kernel_paths
+    from tpucenterface_torch.train.step import tree_paths
+
+    eng = getattr(det, "_quant", None)
+    if eng is None:
+        raise ValueError("save_packed_weights requires a quantize()d detector")
+    qmax = eng.wqmax
+    arrays: Dict[str, np.ndarray] = {}
+    manifest: Dict[str, Any] = {
+        "weight_bits": eng.weight_bits,
+        "int8_dw": int(eng.int8_dw),
+        "packed": {},
+        "leaves": {},
+        "act": sorted(eng.act_scales or {}),
+    }
+    flat = {p: t.detach().cpu().numpy() for p, t in tree_paths(eng.p)}
+    packed_paths = set()
+    for tag, kp in _kernel_paths(eng).items():
+        if not eng.quantizes(tag) or kp not in flat:
+            continue
+        node = flat[kp]
+        packed_paths.add(kp)
+        kq, sw = eng.quant_weight(tag)  # the installed weights' own rule
+        u = (kq.astype(np.int16) + qmax).astype(np.uint8).reshape(-1)  # [0, 2 * qmax]
+        if eng.weight_bits <= 4:
+            if u.size % 2:
+                u = np.concatenate([u, np.zeros(1, np.uint8)])
+            u = (u[0::2] << 4) | u[1::2]
+        arrays[f"g/{tag}"] = u
+        arrays[f"s/{tag}"] = sw.astype(np.float32)
+        manifest["packed"][tag] = {"path": list(kp), "shape": list(node.shape)}
+    for kp, node in flat.items():
+        if kp in packed_paths:
+            continue
+        key = "p/" + "/".join(kp)
+        manifest["leaves"][key] = {"path": list(kp), "dtype": str(node.dtype)}
+        arrays[key] = node
+    for tag, v in (eng.act_scales or {}).items():
+        arrays[f"a/{tag}"] = np.asarray(v, np.float64)
+    arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(), np.uint8).copy()
+    buf = _io.BytesIO()
+    np.savez(buf, **arrays)
+    data = buf.getvalue()
+    with open(path, "wb") as f:
+        f.write(data)
+    f32_bytes = sum(int(np.prod(v.shape)) * 4 for v in flat.values())
+    return {"packed_bytes": len(data), "f32_bytes": f32_bytes}
+
+
+def load_packed_weights(path: str):
+    """Inverse of `save_packed_weights` (either package's) -> (scales,
+    quant_params) for `Detector.quantize(scales=scales,
+    quant_params=quant_params)`: the scales carry weight_bits, int8_dw and
+    the frozen "w:<tag>" weight scales. Neither the card nor the port has
+    `ml_dtypes`, so a leaf whose manifest dtype is "bfloat16" loads as
+    float32 values, each exact in bf16 (the artifact stores them so)."""
+    from tpucenterface_torch.train.step import tree_build
+
+    z = np.load(path)
+    manifest = json.loads(bytes(z["manifest"]).decode())
+    bits = manifest["weight_bits"]
+    qmax = 2 ** (bits - 1) - 1
+    flat: Dict[tuple, np.ndarray] = {}
+    scales: Dict[str, Any] = {}
+    for tag, info in manifest["packed"].items():
+        shape = tuple(info["shape"])
+        u = z[f"g/{tag}"]
+        if bits <= 4:
+            u = np.stack([(u >> 4) & 0xF, u & 0xF], axis=-1).reshape(-1)
+        g = u[: int(np.prod(shape))].astype(np.int16) - qmax
+        sw = z[f"s/{tag}"].astype(np.float64)
+        flat[tuple(info["path"])] = (g.reshape(shape).astype(np.float64) * sw).astype(np.float32)
+        scales[f"w:{tag}"] = sw.astype(np.float32)
+    for key, info in manifest["leaves"].items():
+        arr = z[key]
+        flat[tuple(info["path"])] = arr.astype(np.float32) if info["dtype"] == "bfloat16" else arr
+    for tag in manifest["act"]:
+        v = z[f"a/{tag}"]
+        scales[tag] = v if v.ndim else float(v)
+    scales["cfg:weight_bits"] = bits
+    scales["cfg:int8_dw"] = int(manifest["int8_dw"])
+    return scales, tree_build(list(flat), list(flat.values()))
