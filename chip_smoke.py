@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
    `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/planar_chain.cu`,
    `csrc/int8_conv.cu`, `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with
-   nvcc into build/kernels/, one nvcc per source, and the host staging
-   kernel (`native/stage_ext.cpp`) with g++ into build/native/, all started
-   together;
+   nvcc into build/kernels/, one nvcc per source, and the host kernels
+   (`native/stage_ext.cpp`, `native/nms_ext.cpp`) with g++ into
+   build/native/, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the shapes the main paths give it, on ragged shapes and on
    tie-heavy inputs (the decode at the buckets' maps, batch 1, K = 1 and
@@ -117,6 +117,25 @@ Phases, in order; any failure raises and the script exits non-zero:
       reloaded bit-equal, the artifact under half the float32 bytes; then
       readings: seconds of calibration, QAT and AdaRound, and the B7 route's
       images/s of the tuned detectors beside the PTQ detector's;
+   k. the entry points users start the system with (`[entry]`,
+      `weights/port.py`, `cli/`): (a) the flagship written as twin-layout
+      `.pth` files (bare, wrapped in {"state_dict": ...}, `module.`-prefixed,
+      and foreign-renamed, the last through `load_torch_pth(auto_map=True,
+      allow_ambiguous=True)`) and loaded with `Detector.from_torch_pth` on
+      the fast engine with the fused decode: at bs32 @ 640 on painted frames
+      each is bit-equal to `from_safetensors` (B3 ten launches a forward, B2
+      one a call), as is `reload_weights(torch_pth_path=)` on a live
+      detector; (b) a random landmark twin saved as `.pth` and loaded with
+      `use_pallas=True`: B1 once, bit-equal to the variables route; (c) the
+      CLIs in this process (the card has no cv2): `port_weights` (equal to
+      the flagship's safetensors), `serve --source synthetic` on 256 frames
+      at 128 a launch (each line equal to a direct `detect_batch`, rounded
+      as the CLI writes), `serve --int8 --int8-dw --save-packed` then
+      `--packed` (equal lines), `demo --max-frames 32`, and the parity
+      report's layer and boxes stages at float32 on numpy-painted scenes
+      (passing, and failing with one corrupted tensor); (d) the C++
+      `bbox_overlaps` and `nms` against the numpy loops; readings: the
+      seconds of `load_torch_pth` and the serve summary (images/s, p50/p99);
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -403,6 +422,16 @@ QFT_CALIB_FRAMES, QFT_SIZE, QFT_QAT_STEPS, QFT_ADA_STEPS, QFT_CMP_BATCH = 16, 32
 QFT_LOSS_RTOL, QFT_GRAD_MAX, QFT_GRAD_NORM = 1e-4, 0.01, 0.01
 QFT_MEAN_ATOL = {"quant": 1e-6, "float": 1e-6}
 
+# The entry-point phase (`[entry]`): the `.pth` routes at ENTRY_BATCH @
+# ENTRY_SIZE on painted frames; `cli.serve --source synthetic` on
+# ENTRY_SERVE_IMAGES frames of ENTRY_SIZE at ENTRY_SERVE_BATCH a launch, every
+# launch on that one rung (`--ladder`), so that a direct `detect_batch` in
+# batches of ENTRY_SERVE_BATCH runs the same program on each image; `cli.demo`
+# for ENTRY_DEMO_FRAMES frames; the parity report's stages at
+# ENTRY_PARITY_SIZE on four painted 360x480 scenes.
+ENTRY_SIZE, ENTRY_BATCH, ENTRY_SERVE_IMAGES, ENTRY_SERVE_BATCH = 640, 32, 256, 128
+ENTRY_DEMO_FRAMES, ENTRY_PARITY_SIZE = 32, 320
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -625,19 +654,20 @@ def phase_build():
         build.load(name)
         return time.perf_counter() - t0
 
-    def timed_stage():
+    def timed_host(load):
         t0 = time.perf_counter()
-        native.load()
+        load()
         return time.perf_counter() - t0
 
     names = ("decode", "mbconv", "nms", "planar", "planar_chain", "int8_conv", "int8_block", "int8_block_s1")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names) + 1) as pool:
-        stage = pool.submit(timed_stage)
+    with ThreadPoolExecutor(len(names) + 2) as pool:
+        stage = pool.submit(timed_host, native.load)
+        nms_ext = pool.submit(timed_host, native.load_nms)
         secs = list(pool.map(timed, names))
     each = ", ".join(f"csrc/{n}.cu {t:.1f} s" for n, t in zip(names, secs))
-    log(f"[build] {each}; native/stage_ext.cpp (g++) {stage.result():.1f} s; all built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] {each}; native/stage_ext.cpp (g++) {stage.result():.1f} s, native/nms_ext.cpp (g++) "
+        f"{nms_ext.result():.1f} s; all built and loaded in {time.perf_counter() - t0:.1f} s")
 
 
 def _fused_feats(hm, wh, off):
@@ -2761,6 +2791,289 @@ def phase_quant_ft(cfg, smi, ptq_b7):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# [entry]: how users start the system
+# --------------------------------------------------------------------------- #
+
+
+def _same_dets(a_dets, b_dets):
+    return all(a.boxes.tobytes() == b.boxes.tobytes() and a.scores.tobytes() == b.scores.tobytes()
+               and (a.landmarks is None) == (b.landmarks is None)
+               and (a.landmarks is None or a.landmarks.tobytes() == b.landmarks.tobytes())
+               for a, b in zip(a_dets, b_dets)) and len(a_dets) == len(b_dets)
+
+
+def _twin_checkpoint(variables, mcfg):
+    """The state dict a torch twin of `mcfg` holds after loading
+    JAX-layout `variables` (num_batches_tracked buffers included), on the
+    CPU."""
+    from tpucenterface_torch.weights.convert import state_dict_from_variables
+    from tpucenterface_torch.weights.torch_twin import TorchCenterFace
+
+    twin = TorchCenterFace(mcfg)
+    missing, unexpected = twin.load_state_dict(state_dict_from_variables(variables), strict=False)
+    if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
+        raise AssertionError(f"[entry] the twin takes other keys: missing {missing}, unexpected {unexpected}")
+    return twin.state_dict()
+
+
+def _foreign_renamed(sd):
+    """`sd` under torchvision-like names (features.N.M.<leaf>) with extra
+    num_batches_tracked buffers: tests/test_parity.py::_foreign_renamed_state."""
+    foreign = {}
+    for i, (k, v) in enumerate(sd.items()):
+        leaf = k.rsplit(".", 1)[-1]
+        foreign[f"features.{i // 4}.{i % 4}.{leaf}"] = v.clone()
+        if leaf == "running_var":
+            foreign[f"features.{i // 4}.{i % 4}.num_batches_tracked"] = torch.tensor(42, dtype=torch.long)
+    return foreign
+
+
+def _run_cli(tag, main, argv):
+    """Run a CLI's main in this process -> (return value, its standard
+    output), which is logged line by line."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[entry] {tag} | {line}")
+    return rc, out
+
+
+def _served_lines(path):
+    return [json.loads(line) for line in open(path)]
+
+
+def _lines_of(dets):
+    """What `cli.serve --out` writes for Detections."""
+    return [{"boxes": np.round(d.boxes, 2).tolist(), "scores": np.round(d.scores, 4).tolist()} for d in dets]
+
+
+def entry_checkpoints(workdir):
+    """Write the flagship as twin-layout `.pth` files (bare, wrapped in
+    {"state_dict": ...}, with `module.` prefixes, and foreign-renamed) ->
+    ({form: path}, the twin state dict)."""
+    from tpucenterface_torch import ModelConfig
+    from tpucenterface_torch.weights.io import load_safetensors
+
+    sd = _twin_checkpoint(load_safetensors(FLAGSHIP), ModelConfig())
+    forms = {
+        "bare": sd,
+        "state_dict": {"state_dict": sd},
+        "module": {f"module.{k}": v for k, v in sd.items()},
+        "foreign": _foreign_renamed(sd),
+    }
+    paths = {}
+    for name, ckpt in forms.items():
+        paths[name] = os.path.join(workdir, f"flagship_{name}.pth")
+        torch.save(ckpt, paths[name])
+    return paths, sd
+
+
+def entry_cpp_nms():
+    """(d) The C++ `bbox_overlaps` and `nms` (`native/nms_ext.cpp`, built by
+    g++ on the card's host) against the numpy loops on random float32
+    detections. Returns a summary for the log."""
+    from tpucenterface_torch import native
+    from tpucenterface_torch.eval import tta, wider_eval
+
+    rng = np.random.RandomState(41)
+    worst, kept, t_cpp, t_np = 0.0, 0, 0.0, 0.0
+    for case in range(200):
+        n = int(rng.randint(1, 400))
+        xy = rng.uniform(0, 600, (n, 2))
+        wh = rng.uniform(4, 120, (n, 2))
+        dets = np.concatenate([xy, xy + wh, rng.choice([0.9, 0.7, 0.5], (n, 1)) if case % 4 == 0
+                               else rng.rand(n, 1)], axis=1).astype(np.float32)
+        t0 = time.perf_counter()
+        got_nms = tta.nms(dets, 0.4)
+        got_iou = wider_eval.bbox_overlaps(dets[:, :4].astype(np.float64), dets[:50, :4].astype(np.float64))
+        t1 = time.perf_counter()
+        want_nms = tta.nms_plain(dets, 0.4)
+        want_iou = wider_eval.bbox_overlaps_plain(dets[:, :4].astype(np.float64), dets[:50, :4].astype(np.float64))
+        t_cpp += t1 - t0
+        t_np += time.perf_counter() - t1
+        if not np.array_equal(got_nms, want_nms):
+            raise AssertionError(f"[entry] (d) C++ nms differs from the numpy loop on case {case} ({n} detections)")
+        worst = max(worst, float(np.abs(got_iou - want_iou).max()))
+        kept += len(got_nms)
+    if worst > 1e-12:
+        raise AssertionError(f"[entry] (d) C++ bbox_overlaps differs from the numpy loop by {worst}")
+    return (f"C++ nms equal to the numpy loop on 200 random float32 sets ({kept} kept), bbox_overlaps within "
+            f"{worst:.3g}; host seconds C++ {t_cpp:.3f}, numpy {t_np:.3f} ({native.NMS_SOURCE.name})")
+
+
+def phase_entry(smi):
+    """Path k, the entry points (`[entry]`): (a) the flagship as `.pth`
+    checkpoints (bare, wrapped, `module.`-prefixed; a foreign-renamed copy
+    through `load_torch_pth(auto_map=True, allow_ambiguous=True)`) loaded with
+    `Detector.from_torch_pth` on the fast engine with the fused decode, each
+    bs32 @ 640 call on painted frames bit-equal to `from_safetensors(FLAGSHIP)`
+    under the same config (B3 ten launches a forward, B2 one a call), and
+    `reload_weights(torch_pth_path=)` on a live detector; (b) a random
+    landmark twin saved as `.pth`, `from_torch_pth` with `use_pallas=True`
+    (B1 once a call) bit-equal to the variables route; (c) the CLIs in this
+    process: `port_weights`, `serve` (uint8 against direct `detect_batch`,
+    then `--int8 --int8-dw --save-packed` against `--packed`), `demo`, and
+    the parity report's layer and boxes stages (float32) on numpy-painted
+    scenes, passing their gates and failing them on one corrupted tensor;
+    (d) the C++ eval NMS against the numpy loops. The references are
+    computed before the counts are set to 0; everything else is counted.
+    Returns the launch counts."""
+    import dataclasses
+    import shutil
+
+    from tpucenterface_torch import DecodeConfig, Detector, DetectorConfig, ModelConfig
+    from tpucenterface_torch.cli import demo, parity_report, port_weights, serve
+    from tpucenterface_torch.weights.io import flatten, load_safetensors
+    from tpucenterface_torch.weights.port import load_torch_pth, variables_from_torch_module, variables_from_torch_state
+    from tpucenterface_torch.weights.torch_twin import TorchCenterFace
+
+    workdir = os.path.join(ROOT, "build", "entry_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    paths, sd = entry_checkpoints(workdir)
+    fast_cfg = DetectorConfig(model=ModelConfig(inference_engine="fast"), decode=DecodeConfig(use_pallas=True),
+                              default_size=ENTRY_SIZE)
+    frames, gts = paint_batch(51, ENTRY_BATCH, (ENTRY_SIZE, ENTRY_SIZE))
+    want = Detector.from_safetensors(FLAGSHIP, fast_cfg).detect_batch(frames, score_thresh=0.05)
+    # (b)'s twin and its variables-route reference
+    lm_model = ModelConfig(with_landmarks=True)
+    lm_cfg = DetectorConfig(model=lm_model, decode=DecodeConfig(use_pallas=True), default_size=320)
+    gen = torch.Generator().manual_seed(23)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(23)
+        lm_twin = TorchCenterFace(lm_model).eval()
+    with torch.no_grad():
+        for m in lm_twin.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    lm_pth = os.path.join(workdir, "landmarks.pth")
+    torch.save(lm_twin.state_dict(), lm_pth)
+    lm_imgs, _ = paint_batch(52, 4, (320, 320))
+    lm_want = Detector(variables=variables_from_torch_module(lm_twin, lm_model), config=lm_cfg).detect_batch(
+        lm_imgs, score_thresh=0.0)
+
+    zero_launches()
+    # (a)
+    load_s, dets = {}, {}
+    for form, path in paths.items():
+        t0 = time.perf_counter()
+        if form == "foreign":
+            v = load_torch_pth(path, fast_cfg.model, auto_map=True, allow_ambiguous=True)
+        else:
+            v = load_torch_pth(path, fast_cfg.model)
+        load_s[form] = time.perf_counter() - t0
+        det = Detector(variables=v, config=fast_cfg) if form == "foreign" else Detector.from_torch_pth(path, fast_cfg)
+        dets[form] = det.detect_batch(frames, score_thresh=0.05)
+    per_forward = len(det._engine.kernel_blocks(ENTRY_SIZE))
+    live = Detector(config=fast_cfg, seed=5)
+    before = live.detect_batch(frames, score_thresh=0.05)
+    v0 = live.weights_version
+    live.reload_weights(torch_pth_path=paths["bare"])
+    dets["reloaded"] = live.detect_batch(frames, score_thresh=0.05)
+    after_a = read_launches()
+    calls_a = len(dets) + 1
+    # (b)
+    lm_got = Detector.from_torch_pth(lm_pth, lm_cfg).detect_batch(lm_imgs, score_thresh=0.0)
+    after_b = read_launches()
+    # (c)
+    st_out = os.path.join(workdir, "port.safetensors")
+    _run_cli("port_weights", port_weights.main, ["--pth", paths["state_dict"], "--out", st_out])
+    ported, flagship = flatten(load_safetensors(st_out)), flatten(load_safetensors(FLAGSHIP))
+    same_ported = ported.keys() == flagship.keys() and all(np.array_equal(ported[k], flagship[k]) for k in flagship)
+    n_serve, rung = ENTRY_SERVE_IMAGES, str(ENTRY_SERVE_BATCH)
+    serve_args = ["--source", "synthetic", "--n-synthetic", str(n_serve), "--device-batch", rung, "--ladder", rung,
+                  "--size", str(ENTRY_SIZE), "--weights", paths["bare"], "--thresh", "-1"]
+    outs = {name: os.path.join(workdir, f"{name}.jsonl") for name in ("u8", "int8", "packed")}
+    packed = os.path.join(workdir, "serve.npz")
+    _, text = _run_cli("serve", serve.main, serve_args + ["--out", outs["u8"]])
+    summary = json.loads(text.strip().splitlines()[-1])
+    _run_cli("serve --int8", serve.main, serve_args + ["--int8", "--int8-dw", "--save-packed", packed,
+                                                       "--out", outs["int8"]])
+    _run_cli("serve --packed", serve.main, serve_args + ["--packed", packed, "--out", outs["packed"]])
+    _, demo_text = _run_cli("demo", demo.main, ["--source", "synthetic", "--max-frames", str(ENTRY_DEMO_FRAMES),
+                                                "--size", str(ENTRY_SIZE), "--weights", paths["bare"]])
+    p32 = ModelConfig(compute_dtype="float32")
+    clean = variables_from_torch_state(sd, p32)
+    scenes = [paint_scene(np.random.RandomState(100 + i), (360, 480), 4)[0] for i in range(4)]
+    size = ENTRY_PARITY_SIZE
+    det32 = Detector(variables=clean, config=DetectorConfig(model=p32, default_size=size))
+    layers, twin = parity_report.layer_stage(p32, sd, clean, size, 2e-3, device=det32.device)
+    boxes = parity_report.boxes_stage(det32, twin, scenes, size)
+    bad_sd = dict(sd, **{"heads.wh.out.bias": sd["heads.wh.out.bias"] + 3.0})
+    bad_layers, bad_twin = parity_report.layer_stage(p32, bad_sd, clean, size, 2e-3, device=det32.device)
+    bad_boxes = parity_report.boxes_stage(det32, bad_twin, scenes, size)
+    launches = read_launches()
+
+    # the counts are read; what follows compares
+    log(f"[entry] (a) load_torch_pth seconds on the flagship: {json.dumps(load_s)} ({smi})")
+    log(f"[entry] kernel launches: after (a) {after_a}, after (b) {after_b}, after (c) {launches}")
+    want_counts = launch_counts(fused_mbconv=per_forward * calls_a, decode_feats_fused=calls_a,
+                                sigmoid_pseudo_nms_fused=1)
+    if (after_a != launch_counts(fused_mbconv=per_forward * calls_a, decode_feats_fused=calls_a)
+            or launches != want_counts):
+        raise AssertionError(f"[entry] launches {after_a}, {after_b}, {launches}; wanted {want_counts}")
+    check_result(dets["bare"], gts, [(ENTRY_SIZE, ENTRY_SIZE)] * ENTRY_BATCH, "[entry] from_torch_pth fast engine")
+    for form, d in dets.items():
+        if not _same_dets(d, want):
+            raise AssertionError(f"[entry] (a) the {form} .pth route differs from from_safetensors(FLAGSHIP)")
+    if live.weights_version != v0 + 1 or _same_dets(before, want):
+        raise AssertionError("[entry] (a) reload_weights(torch_pth_path=) did not swap the weights")
+    log(f"[entry] (a) bare, state_dict, module. and foreign-renamed .pth and a reload_weights(torch_pth_path=) "
+        f"bit-equal to from_safetensors(FLAGSHIP) at bs{ENTRY_BATCH}@{ENTRY_SIZE} ({sum(len(d.scores) for d in want)} "
+        f"detections >= 0.05; {per_forward} B3 launches a forward)")
+    if not _same_dets(lm_got, lm_want) or any(d.landmarks is None or len(d.scores) != 200 for d in lm_got):
+        raise AssertionError("[entry] (b) the landmark .pth route differs from the variables route")
+    log("[entry] (b) landmark twin .pth with use_pallas: B1 once, boxes, scores and landmarks bit-equal to the "
+        "variables route")
+    if not same_ported:
+        raise AssertionError("[entry] (c) port_weights: the .safetensors differs from the flagship's")
+    # the serving decode's K (`--max-dets`, 100): exactly tied zero scores
+    # are ordered by the decode's chunks, which depend on K
+    det_u8 = Detector.from_torch_pth(paths["bare"], DetectorConfig(decode=DecodeConfig(max_dets=100),
+                                                                   default_size=ENTRY_SIZE))
+    rng = np.random.RandomState(0)
+    synth = np.stack([rng.randint(0, 255, (ENTRY_SIZE, ENTRY_SIZE, 3), np.uint8) for _ in range(n_serve)])
+    b = ENTRY_SERVE_BATCH
+    direct = []
+    for s in range(0, n_serve, b):  # launches of b images, as the engine pads them
+        chunk = np.zeros((b, ENTRY_SIZE, ENTRY_SIZE, 3), np.uint8)
+        chunk[: len(synth[s:s + b])] = synth[s:s + b]
+        direct += det_u8.detect_batch(chunk, score_thresh=-1.0)[: len(synth[s:s + b])]
+    served = _served_lines(outs["u8"])
+    if [r["image"] for r in served] != [f"synthetic_{i}" for i in range(n_serve)]:
+        raise AssertionError("[entry] (c) serve wrote other images")
+    if [{k: r[k] for k in ("boxes", "scores")} for r in served] != _lines_of(direct):
+        raise AssertionError("[entry] (c) serve --out differs from a direct detect_batch")
+    if _served_lines(outs["int8"]) != _served_lines(outs["packed"]):
+        raise AssertionError("[entry] (c) serve --packed differs from the --int8 run that saved the artifact")
+    if not (" fps" in demo_text and f"{ENTRY_DEMO_FRAMES} frames" in demo_text):
+        raise AssertionError(f"[entry] (c) demo: {demo_text}")
+    log(f"[entry] (c) port_weights equal; serve --out equal to detect_batch on {n_serve} images (K=100, "
+        f"rounded as the CLI writes); --packed equal to --int8 --save-packed; demo ran")
+    passes = layers["pass"] and boxes["worst_match_frac"] >= 0.9
+    caught = not bad_layers["pass"] and bad_boxes["worst_match_frac"] < 0.9
+    log(f"[entry] (c) parity at {size}, float32: {layers['n_layers_compared']} layers, worst |diff| "
+        f"{layers['worst_abs_diff']:.3g}; boxes worst top-20 match {boxes['worst_match_frac']}; with heads.wh.out.bias "
+        f"+3: worst |diff| {bad_layers['worst_abs_diff']:.3g}, match {bad_boxes['worst_match_frac']}")
+    if not (passes and caught):
+        raise AssertionError("[entry] (c) the parity gates: the clean flagship must pass and the corrupted fail")
+    log(f"[entry] (d) {entry_cpp_nms()}")
+    engines = summary["engines"]
+    log(f"[entry] readings, serve on {n_serve} synthetic {ENTRY_SIZE} frames at {b} a launch, module forward ({smi}): "
+        f"{summary['img_per_s']} images/s, wall {summary['wall_s']} s; engines "
+        + json.dumps({hw: {k: st[k] for k in ("launches", "images", "latency_ms_p50", "latency_ms_p99")}
+                      for hw, st in engines.items()}))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def normalize_raw(det, imgs, dev):
     """The identity-path input of `det` for uint8 images at its size."""
     from tpucenterface_torch.preprocess import normalize_images
@@ -3245,7 +3558,8 @@ def main() -> int:
              phase_main_large(large_dets, feats_imgs, x_large),
              phase_serving(cfg, det, det_fast, quant_dets["b7"], smi),
              phase_train(cfg, smi),
-             phase_quant_ft(cfg, smi, quant_dets["b7"])]
+             phase_quant_ft(cfg, smi, quant_dets["b7"]),
+             phase_entry(smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

@@ -30,7 +30,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from torch_ft_ref import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 from torch_ft_ref import JCFG, SIZE, calib, exact_jax, folded_small, np_tree, port_cfg, small_variables
 from tpucenterface.quant.adaround import _h as j_h
 from tpucenterface.quant.adaround import _h_init as j_h_init

@@ -28,6 +28,7 @@ from tpucenterface_torch.decode.fused_decode import (
     decode_feats_fused,
     decode_feats_fused_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 SCORE_ATOL = 1e-6
 BOX_ATOL = 1e-4

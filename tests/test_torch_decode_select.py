@@ -32,6 +32,7 @@ from test_torch_decode import FIXTURES, _rand_np
 from tpucenterface_torch.config import DEFAULT_BUCKETS, DecodeConfig
 from tpucenterface_torch.decode import fused_decode as fd
 from tpucenterface_torch.decode.reference import pseudo_nms, topk_lowest_index
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _filled(b, h, w, logit, rich_rows=None, seed=0):

@@ -28,6 +28,7 @@ from tpucenterface.data.synth import render_scene
 from tpucenterface.detector import Detector as JDetector
 from tpucenterface.weights.io import load_safetensors as jax_load
 from tpucenterface_torch.ops.fused_mbconv import unpack_fused_mbconv
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "flagship.safetensors")
@@ -114,13 +115,20 @@ def test_detector_without_gpu_raises():
         T.Detector.from_safetensors(ARTIFACT)
 
 
-def test_flagship_f32_matches_jax(flagship_vars, scenes):
+@pytest.fixture(scope="module")
+def f32_pair(flagship_vars):
+    """(port, JAX) Detectors of the flagship in float32, shared by the
+    float32 cases: one JAX Detector, whose programs each compile once."""
+    port_cfg, jax_cfg = _configs("float32")
+    return T.Detector.from_safetensors(ARTIFACT, port_cfg, device="cpu"), JDetector(variables=flagship_vars,
+                                                                                    config=jax_cfg)
+
+
+def test_flagship_f32_matches_jax(f32_pair, scenes):
     """float32 compute and resize on both sides: all K scores within 1e-5
     and all K boxes within 1e-3 px, in the same order (the two differ only
     in float32 summation order: measured 3.7e-6 and 3.1e-5)."""
-    port_cfg, jax_cfg = _configs("float32")
-    port = T.Detector.from_safetensors(ARTIFACT, port_cfg, device="cpu")
-    ref = JDetector(variables=flagship_vars, config=jax_cfg)
+    port, ref = f32_pair
     hws = np.array([[384, 512], [300, 512], [384, 401]], np.int32)
     pd = port.detect_batch(scenes, hws=hws, score_thresh=0.0)
     rd = ref.detect_batch(scenes, hws=hws, score_thresh=0.0)
@@ -147,12 +155,10 @@ def test_flagship_bf16_matches_jax(flagship_vars, scenes):
         match_detections(a, b, box_atol=2.0, score_atol=0.03, firm=0.1)
 
 
-def test_flagship_detect_single_and_identity(flagship_vars):
+def test_flagship_detect_single_and_identity(f32_pair):
     """`detect` on an odd size (letterbox) and on a model-size image (the
     identity preprocess), float32, against the JAX Detector."""
-    port_cfg, jax_cfg = _configs("float32")
-    port = T.Detector.from_safetensors(ARTIFACT, port_cfg, device="cpu")
-    ref = JDetector(variables=flagship_vars, config=jax_cfg)
+    port, ref = f32_pair
     odd = _scenes(1, seed=5, hw=(123, 457))[0]
     square = _scenes(1, seed=6, hw=(SIZE, SIZE))[0]
     for img in (odd, square):

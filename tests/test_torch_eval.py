@@ -6,13 +6,16 @@
   each call of a scorer function goes to the JAX function too, and the two
   results must be equal, AP floats bit for bit; the fixture's own asserts
   then hold the port's result.
-- `nms` against both JAX routes: the numpy loop, and the C++ extension the
-  JAX package takes when it can build it, which casts the detections to
-  float32. On float32 detections (what the detector returns) the three
-  agree, ties and IoUs within 1e-6 of the threshold included; on float64
-  detections near the threshold the two JAX routes disagree with each
-  other, and the port keeps the numpy loop's answer (the case is pinned
-  below).
+- `nms` and `bbox_overlaps` take the port's C++ kernels (`native/nms_ext.cpp`)
+  as the JAX package takes its own whenever it can build them, which is
+  here; `nms_plain` and `bbox_overlaps_plain` are the numpy loops. The
+  kernels equal the JAX package's C++ functions and the numpy loops under
+  hypothesis. The C++ `nms` casts the detections to float32: on float32
+  detections (what the detector returns) the four routes agree, ties and
+  IoUs within 1e-6 of the threshold included; on float64 detections near
+  the threshold the C++ and numpy routes disagree, the port's C++ route
+  with the JAX C++ route and its numpy loop with the JAX numpy loop (the
+  case is pinned below).
 - `landmark_nme` and `score_detections` against the JAX functions on records
   written to disk, read from their paths or passed as decoded images.
 """
@@ -34,9 +37,11 @@ import tpucenterface.eval.tta as jtta
 import tpucenterface.eval.wider_eval as jwider
 from tpucenterface import native
 from tpucenterface.data.wider import WiderImage as JWiderImage
+from tpucenterface_torch import native as pnative
 from tpucenterface_torch.data.wider import WiderImage
 from tpucenterface_torch.detector import Detections
 from tpucenterface_torch.eval import synth_eval, tta, wider_eval
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -170,27 +175,89 @@ def test_nms_matches_both_jax_routes_on_float32(dets):
     assert got.dtype == np.int64
     np.testing.assert_array_equal(got, want_numpy)
     np.testing.assert_array_equal(got, _jax_native_nms(dets, 0.4))
+    np.testing.assert_array_equal(tta.nms_plain(dets, 0.4), want_numpy)
 
 
 @settings(max_examples=100, deadline=None)
 @given(dets=near_threshold_dets(np.float64))
 def test_nms_matches_the_jax_numpy_loop_on_float64(dets):
+    """The port's numpy loop is the JAX numpy loop, its C++ route the JAX
+    C++ route, on float64 detections too."""
     with pytest.MonkeyPatch.context() as mp:
-        np.testing.assert_array_equal(tta.nms(dets, 0.4), _jax_numpy_nms(dets, 0.4, mp))
+        np.testing.assert_array_equal(tta.nms_plain(dets, 0.4), _jax_numpy_nms(dets, 0.4, mp))
+    np.testing.assert_array_equal(tta.nms(dets, 0.4), _jax_native_nms(dets, 0.4))
 
 
 def test_nms_float64_case_where_the_jax_routes_disagree(monkeypatch):
     """Two boxes whose IoU is 0.39999989 in float64 and 0.40000013 in float32:
-    the JAX numpy loop keeps both, its C++ route drops the second. The port
-    is the numpy loop (a reference-side discrepancy, ROADMAP §C)."""
+    the numpy loops keep both, the C++ routes drop the second. The port's
+    eval `nms` is the C++ route, as the JAX eval's is wherever its library
+    builds (a reference-side discrepancy, ROADMAP §C)."""
     dets = np.array([
         [253.92260174, 209.8437826, 301.42352011, 399.62983984, 0.9],
         [274.70871485, 209.8437826, 322.20963321, 399.62983984, 0.9],
     ])
-    np.testing.assert_array_equal(tta.nms(dets, 0.4), [0, 1])
+    np.testing.assert_array_equal(tta.nms_plain(dets, 0.4), [0, 1])
     np.testing.assert_array_equal(_jax_numpy_nms(dets, 0.4, monkeypatch), [0, 1])
+    np.testing.assert_array_equal(tta.nms(dets, 0.4), [0])
     np.testing.assert_array_equal(_jax_native_nms(dets, 0.4), [0])
     np.testing.assert_array_equal(tta.nms(dets.astype(np.float32), 0.4), _jax_native_nms(dets.astype(np.float32), 0.4))
+
+
+@st.composite
+def box_sets(draw, dtype):
+    """(N, 4) xyxy boxes, some degenerate (x2 < x1) or sharing edges."""
+    n = draw(st.integers(0, 12))
+    rows = []
+    for _ in range(n):
+        x, y = draw(st.floats(0, 300)), draw(st.floats(0, 300))
+        rows.append([x, y, x + draw(st.floats(-3, 120)), y + draw(st.sampled_from([0.0, 1.0, 37.5, 90.0]))])
+    return np.asarray(rows, dtype).reshape(n, 4)
+
+
+@settings(max_examples=100, deadline=None)
+@given(boxes=box_sets(np.float64), query=box_sets(np.float64), scores=st.lists(st.sampled_from([0.9, 0.5, 0.2]),
+                                                                              min_size=12, max_size=12))
+def test_native_kernels_equal_jax_native_and_numpy(boxes, query, scores):
+    """`native.bbox_overlaps` and `native.nms` against the JAX package's C++
+    functions (bit-equal) and the numpy loops (float64 IoU, as the scorer
+    passes it, within 1e-12; NMS on float32 detections equal) on boxes of
+    positive area."""
+    got = pnative.bbox_overlaps(boxes, query)
+    if len(boxes) and len(query):
+        np.testing.assert_array_equal(got, native.bbox_overlaps(boxes, query))
+    else:
+        assert got.shape == (len(boxes), len(query))
+    dets = np.concatenate([boxes, np.asarray(scores[: len(boxes)]).reshape(-1, 1)], axis=1).astype(np.float32)
+    order = np.argsort(-dets[:, 4], kind="stable")
+    np.testing.assert_array_equal(pnative.nms(dets[order], 0.4), native.nms(dets[order], 0.4))
+    # against the numpy loops on boxes of positive area, as detections have:
+    # on a box of negative area the loops divide by a union <= 0 (NaN or a
+    # clamped 1e-10), where the C++ kernels skip the pair (in both packages)
+    if (boxes[:, 2] >= boxes[:, 0]).all() and (query[:, 2] >= query[:, 0]).all():
+        np.testing.assert_allclose(wider_eval.bbox_overlaps(boxes, query),
+                                   wider_eval.bbox_overlaps_plain(boxes, query), rtol=0, atol=1e-12)
+        np.testing.assert_array_equal(tta.nms(dets, 0.4), tta.nms_plain(dets, 0.4))
+
+
+def test_native_library_is_per_host_and_a_failed_build_raises(tmp_path, monkeypatch):
+    """The eval library is named by a hash of source, flags, compiler and
+    host, as the staging library is; a build that fails raises (nothing
+    falls back to the numpy loops), and a malformed array is refused."""
+    here = pnative._library_path(pnative.NMS_SOURCE)
+    assert here.name.startswith("nms_ext-") and pnative.available()
+    bad = tmp_path / "nms_ext.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(pnative, "NMS_SOURCE", bad)
+    monkeypatch.setattr(pnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(pnative, "_nms_lib", None)
+    assert not pnative.available()
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tta.nms(np.ones((2, 5)), 0.4)
+    assert not any((tmp_path / "build").glob("*.so"))
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="rows of 5"):
+        pnative.nms(np.ones((2, 4)), 0.4)
 
 
 def test_nms_empty_and_pick_bucket():

@@ -32,6 +32,7 @@ from tpucenterface.eval.batch_runner import batched_detect as jbatched_detect
 from tpucenterface.eval.batch_runner import batched_detect_tta as jbatched_detect_tta
 from tpucenterface.weights.io import load_safetensors as jax_load
 from tpucenterface_torch.eval.batch_runner import batched_detect, batched_detect_tta
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "flagship.safetensors")

@@ -30,6 +30,7 @@ from tpucenterface_torch.model.centernet import load_network
 from tpucenterface_torch.model.fast_forward import FastEngine, kernel_blocks
 from tpucenterface_torch.ops.fused_mbconv import fused_mbconv
 from tpucenterface_torch.weights.fold import fold_variables
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 SIZE = 64
 ATOL, RTOL = 0.08, 0.05

@@ -70,6 +70,7 @@ from tpucenterface_torch.ops.int8_block import (
 )
 from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
 from tpucenterface_torch.quant.int8_ops import _mm, conv1x1_int8, conv3x3_int8, dwconv3x3_int8
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 KEYS = ("we", "e_scale", "e_bias", "e_inv_sdw", "wd", "d_scale", "d_bias", "d_inv_sproj", "wp", "p_scale", "p_bias")
 

@@ -33,6 +33,7 @@ from tpucenterface_torch.ops.fused_mbconv import (
     mbconv_reference,
 )
 from tpucenterface_torch.weights.convert import mbconv_args_from_block, state_dict_from_variables
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL, RTOL = 0.02, 2.0 ** -7
 

@@ -34,6 +34,7 @@ from tpucenterface_torch.model.backbone import backbone_plan
 from tpucenterface_torch.model.centernet import init_model
 from tpucenterface_torch.ops import fused_mbconv as fm
 from tpucenterface_torch.weights.fold import fold_variables
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "tpucenterface_torch" / "csrc" / "mbconv.cu"

@@ -31,6 +31,7 @@ from tpucenterface_torch.model.backbone import backbone_plan, feature_channels
 from tpucenterface_torch.model.centernet import CenterFaceNet
 from tpucenterface_torch.weights.convert import state_dict_from_variables
 from tpucenterface_torch.weights.fold import fold_variables, raw_pixel_offset
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 SETTING = ((1, 16, 1, 1), (6, 24, 1, 2), (6, 32, 1, 2), (6, 64, 1, 2), (6, 96, 1, 1), (6, 160, 1, 2))
 SIZE = 96

@@ -24,6 +24,7 @@ from tpucenterface_torch.decode.fused_nms import (
     sigmoid_pseudo_nms_tiled,
 )
 from tpucenterface_torch.decode.reference import decode_feats_with_idx, pseudo_nms
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 @pytest.mark.parametrize("shape,seed", [((3, 32, 64), 0), ((2, 33, 17), 1), ((1, 8, 128), 2)])

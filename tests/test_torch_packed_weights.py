@@ -23,7 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import tpucenterface_torch as T
-from torch_ft_ref import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 from torch_ft_ref import JCFG, SIZE, np_tree, port_cfg, small_variables
 from tpucenterface.config import DetectorConfig as JDetectorConfig
 from tpucenterface.detector import Detector as JDetector

@@ -23,6 +23,7 @@ from tpucenterface_torch.detector import PLANAR_CHAIN_RES
 from tpucenterface_torch.model.backbone import backbone_plan
 from tpucenterface_torch.model.planar_engine import chain_runs
 from tpucenterface_torch.ops import planar_mbconv as T
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _check_plan(shapes, b, h, w, plan=None):

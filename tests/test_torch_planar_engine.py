@@ -45,6 +45,7 @@ from tpucenterface_torch.weights.convert import chain_blocks_from_run
 from tpucenterface_torch.weights.fold import fold_variables
 
 from test_torch_fast_engine import _randomize_bn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 SIZE = 128
 F32_ATOL = 1e-4

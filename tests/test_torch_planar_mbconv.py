@@ -32,6 +32,7 @@ import torch
 
 from tpucenterface.ops import planar_mbconv as J
 from tpucenterface_torch.ops import planar_mbconv as T
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL, RTOL, MAX_DIFFERING = 0.02, 2.0 ** -7, 0.002
 F32_ATOL = 1e-5

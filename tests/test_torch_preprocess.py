@@ -23,6 +23,7 @@ from tpucenterface import preprocess as jp
 from tpucenterface.config import PreprocessConfig as JPre
 from tpucenterface_torch import preprocess as tp
 from tpucenterface_torch.config import PreprocessConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 SIZE = 160
 

@@ -38,7 +38,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import tpucenterface_torch as T
-from torch_ft_ref import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 from torch_ft_ref import KEYS, SIZE, JCFG, calib, exact_jax, folded_small, jit_exact, np_tree, port_cfg
 from torch_ft_ref import small_variables
 from tpucenterface.config import DetectorConfig as JDetectorConfig

@@ -55,6 +55,7 @@ from tpucenterface_torch.config import ModelConfig
 from tpucenterface_torch.quant.engine import QuantEngine, percentile_linear
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_quant_scales, save_quant_scales
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "flagship.safetensors")
@@ -380,14 +381,24 @@ def small_det_inputs():
     return rng.randint(0, 255, (4, SIZE, SIZE, 3), np.uint8), rng.randint(0, 255, (2, SIZE, SIZE, 3), np.uint8)
 
 
-def _small_det():
-    _, v = jinit(JModel(), rng=jax.random.PRNGKey(0), input_size=SIZE)
-    return T.Detector(variables=_np_tree(v), config=T.DetectorConfig(default_size=SIZE), device="cpu")
+@pytest.fixture(scope="module")
+def small_variables():
+    """The default model's JAX init at seed 0 (one JAX run, shared by the
+    Detector cases below) as a numpy tree."""
+    return _np_tree(jinit(JModel(), rng=jax.random.PRNGKey(0), input_size=SIZE)[1])
 
 
-def test_detector_scales_round_trip_dequantize_and_reload(small_det_inputs, tmp_path):
+def _copy(tree):
+    return {k: _copy(v) if isinstance(v, dict) else np.array(v) for k, v in tree.items()}
+
+
+def _small_det(variables):
+    return T.Detector(variables=_copy(variables), config=T.DetectorConfig(default_size=SIZE), device="cpu")
+
+
+def test_detector_scales_round_trip_dequantize_and_reload(small_det_inputs, small_variables, tmp_path):
     calib, imgs = small_det_inputs
-    det = _small_det()
+    det = _small_det(small_variables)
     bf16 = det.detect_batch(imgs, score_thresh=-1.0)
     with pytest.raises(ValueError, match="quantize"):
         det.stem_input_lut()
@@ -400,7 +411,7 @@ def test_detector_scales_round_trip_dequantize_and_reload(small_det_inputs, tmp_
     save_quant_scales(scales, path)
     loaded = load_quant_scales(path)
     assert any(isinstance(v, np.ndarray) for v in loaded.values())
-    fresh = _small_det()
+    fresh = _small_det(small_variables)
     assert fresh.quantize(scales=loaded, int8_dw=False).keys() == scales.keys()  # the dict's cfg wins
     assert fresh._quant.int8_dw
     for a, b in zip(fresh.detect_batch(imgs, score_thresh=-1.0), q):
@@ -412,15 +423,15 @@ def test_detector_scales_round_trip_dequantize_and_reload(small_det_inputs, tmp_
     assert det.weights_version == v0 + 2
     for a, b in zip(det.detect_batch(imgs, score_thresh=-1.0), bf16):
         np.testing.assert_array_equal(a.scores, b.scores)
-    fresh.reload_weights(variables=_np_tree(jinit(JModel(), rng=jax.random.PRNGKey(0), input_size=SIZE)[1]))
+    fresh.reload_weights(variables=_copy(small_variables))
     assert fresh._quant is None
     for a, b in zip(fresh.detect_batch(imgs, score_thresh=-1.0), bf16):
         np.testing.assert_array_equal(a.scores, b.scores)
 
 
-def test_quantize_guards(small_det_inputs):
+def test_quantize_guards(small_det_inputs, small_variables):
     calib, _ = small_det_inputs
-    det = _small_det()
+    det = _small_det(small_variables)
     with pytest.raises(ValueError, match="calib_images"):
         det.quantize()
     # the JAX guards of the fine-tuning arguments (tests/test_torch_qat.py runs them)

@@ -20,6 +20,7 @@ from tpucenterface_torch.config import PreprocessConfig
 from tpucenterface_torch.quant.engine import apply_stem_lut, stem_input_lut
 from tpucenterface_torch.runtime import prefetch_to_device
 from tpucenterface_torch.runtime.profiling import StepTimer, annotate, trace
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _batches(n, seed=0):

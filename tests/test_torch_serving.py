@@ -45,6 +45,7 @@ from tpucenterface.runtime.serving import ServingRouter as JServingRouter
 from tpucenterface.weights.io import load_safetensors as jax_load
 from tpucenterface_torch.model.centernet import init_model
 from tpucenterface_torch.runtime.serving import ServingEngine, ServingRouter
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "flagship.safetensors")

@@ -49,6 +49,7 @@ from tpucenterface_torch.model.blocks import BatchNorm
 from tpucenterface_torch.model.centernet import CenterFaceNet, init_model
 from tpucenterface_torch.train import losses
 from tpucenterface_torch.train import step as pstep
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 # one block a stage but two at stride 4, so that a residual block is in it
 SETTING = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 1, 2), (6, 64, 1, 2), (6, 160, 1, 2))

@@ -22,6 +22,7 @@ from tpucenterface.data import wider as jwider
 from tpucenterface.config import TrainConfig as JTrain
 from tpucenterface_torch.config import TrainConfig
 from tpucenterface_torch.data import augment, loader, synth, targets, wider
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _equal(a, b, what=""):

@@ -32,6 +32,7 @@ from tpucenterface_torch.data.wider import WiderImage
 from tpucenterface_torch.train import loop
 from tpucenterface_torch.train import step as pstep
 from tpucenterface_torch.train.metrics import make_logger
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SETTING = ((1, 16, 1, 1), (6, 24, 1, 2), (6, 32, 1, 2), (6, 64, 1, 2), (6, 96, 1, 1), (6, 160, 1, 2))

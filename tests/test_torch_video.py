@@ -26,6 +26,7 @@ from tpucenterface.detector import Detector as JDetector
 from tpucenterface.runtime.video import MultiStreamPipeline as JMultiStreamPipeline
 from tpucenterface.weights.io import load_safetensors as jax_load
 from tpucenterface_torch.runtime.video import MultiStreamPipeline, VideoPipeline, draw_detections
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(ROOT, "artifacts", "flagship.safetensors")

@@ -19,6 +19,7 @@ from tpucenterface_torch.weights.convert import (
     variables_from_state_dict,
 )
 from tpucenterface_torch.weights.io import load_safetensors, read_safetensors_flat
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ARTIFACT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

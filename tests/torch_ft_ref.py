@@ -25,8 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax  # noqa: F401  (imported before `exact_jax` patches jax.jit: its own jitted functions stay plain)
-import pytest
-import torch
 
 from tpucenterface.config import ModelConfig as JModel
 from tpucenterface.model.centernet import init_model as jinit
@@ -37,18 +35,6 @@ SETTING = ((1, 8, 1, 1), (4, 16, 1, 2), (4, 16, 1, 2), (4, 24, 1, 2), (4, 24, 1,
 SMALL = dict(inverted_residual_setting=SETTING, stem_channels=8, fpn_channels=16, head_conv=16)
 JCFG = JModel(compute_dtype="float32", **SMALL)
 KEYS = ["hm", "whoff"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread for the module: the small model's many small ops
-    gain nothing from more, and the test runner's workers share the cores
-    (torch's thread pools in six workers on eight cores made these tests
-    40-100 times slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg(**kw):

@@ -1,8 +1,8 @@
 """Detector API: `detect(image) -> Detections(boxes, scores, landmarks)`.
 
 Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
-`from_safetensors`, `_decode`, `_forward`, `results_to_detections`,
-`_identity_for`, `_get_or_build`, `_single_fn`, `_batch_fn`,
+`from_safetensors`, `from_torch_pth`, `_decode`, `_forward`,
+`results_to_detections`, `_identity_for`, `_get_or_build`, `_single_fn`, `_batch_fn`,
 `_batch_fn_auto`, `_batch_flip_fn`, `reload_weights`, `weights_version`,
 `detect`, `detect_batch`, `warmup`, `quantize`, `quant_variables`,
 `last_qat_metrics`, `last_adaround_report`, `dequantize`, `stem_input_lut`),
@@ -56,7 +56,7 @@ stages a launch into XLA's preferred input layouts, the port stages it
 through a ring of reused pinned host buffers and a copy stream
 (`PinnedStaging`), so that the copy of launch N+1 runs beside program N.
 
-Not ported yet: `from_torch_pth` and the space-to-depth stem.
+Not ported yet: the space-to-depth stem.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ from tpucenterface_torch.quant.engine import QuantEngine, stem_input_lut
 from tpucenterface_torch.quant.qat import qat_finetune
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_safetensors
+from tpucenterface_torch.weights.port import load_torch_pth
 
 
 # The planar engine chains stride-1 blocks on maps up to this many rows high:
@@ -313,10 +314,19 @@ class Detector:
     ) -> "Detector":
         return cls(variables=load_safetensors(path), config=config, device=device)
 
+    @classmethod
+    def from_torch_pth(
+        cls, path: str, config: DetectorConfig = DetectorConfig(), device=None
+    ) -> "Detector":
+        """Port a torch `.pth` state_dict checkpoint named after the twin
+        contract (`weights.port.load_torch_pth`)."""
+        return cls(variables=load_torch_pth(path, config.model), config=config, device=device)
+
     def reload_weights(
         self,
         variables: Optional[Dict[str, Any]] = None,
         safetensors_path: Optional[str] = None,
+        torch_pth_path: Optional[str] = None,
     ) -> None:
         """Swap the model weights (a rolling update under live serving).
         The new weights go through the same construction as `__init__`
@@ -328,8 +338,10 @@ class Detector:
         dropped: quantize() again for the new weights."""
         if safetensors_path is not None:
             variables = load_safetensors(safetensors_path)
+        elif torch_pth_path is not None:
+            variables = load_torch_pth(torch_pth_path, self._init_config.model)
         elif variables is None:
-            raise ValueError("pass variables or safetensors_path")
+            raise ValueError("pass variables, safetensors_path, or torch_pth_path")
         fresh = Detector(
             variables=variables,
             config=self._init_config,

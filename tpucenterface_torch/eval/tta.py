@@ -1,8 +1,11 @@
 """Flip and multi-scale test-time augmentation, merged by greedy NMS.
 
 Mirrors `tpucenterface/eval/tta.py` (`nms`, `flip_detect`, `pick_bucket`,
-`detect_tta`). `nms` is the JAX package's numpy loop in float64; its C++
-extension, which that package takes when it can build it, is not ported.
+`detect_tta`). `nms` takes the C++ kernel of `native` (`native/nms_ext.cpp`),
+as the JAX package does whenever it can build it: it computes in float32.
+`nms_plain` is the JAX package's numpy loop in float64, the plain version the
+tests hold the kernel to; near the threshold on float64 input the two can
+decide a box differently (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -11,13 +14,23 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from tpucenterface_torch import native
 from tpucenterface_torch.detector import Detections
 
 
 def nms(dets: np.ndarray, thresh: float = 0.4) -> np.ndarray:
     """Greedy IoU NMS over (N, 5) xyxy+score (+1 pixel convention), scores
     in stable descending order; returns the kept indices. A box is dropped
-    when its IoU with a kept one exceeds `thresh`."""
+    when its IoU with a kept one exceeds `thresh`. The C++ kernel, on the
+    detections cast to float32."""
+    if len(dets) == 0:
+        return np.zeros(0, np.int64)
+    order = np.argsort(-dets[:, 4], kind="stable")
+    return order[native.nms(dets[order], thresh)]
+
+
+def nms_plain(dets: np.ndarray, thresh: float = 0.4) -> np.ndarray:
+    """`nms` in numpy, in the detections' own dtype."""
     if len(dets) == 0:
         return np.zeros(0, np.int64)
     x1, y1, x2, y2, s = dets.T

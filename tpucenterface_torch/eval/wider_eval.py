@@ -10,8 +10,10 @@ Mirrors `tpucenterface/eval/wider_eval.py` (`NUM_THRESH`, `bbox_overlaps`,
   dataset: global min-max score normalization, 1000 score thresholds -> PR
   curve -> all-point AP.
 
-`bbox_overlaps` is the JAX package's numpy reference in float64; its C++
-extension is not ported. Ground truth comes from the official `.mat` files
+`bbox_overlaps` takes the C++ kernel of `native` (`native/nms_ext.cpp`), as
+the JAX package does whenever it can build it; `bbox_overlaps_plain` is the
+JAX package's numpy version in float64, the plain version the tests hold the
+kernel to. Ground truth comes from the official `.mat` files
 (scipy, imported when they are loaded) or from in-memory box lists.
 """
 
@@ -22,11 +24,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from tpucenterface_torch import native
+
 NUM_THRESH = 1000
 
 
 def bbox_overlaps(boxes: np.ndarray, query: np.ndarray) -> np.ndarray:
-    """IoU matrix (N, M) in float64 for xyxy boxes, +1 pixel convention."""
+    """IoU matrix (N, M) in float64 for xyxy boxes, +1 pixel convention,
+    through the C++ kernel."""
+    if len(boxes) == 0 or len(query) == 0:
+        return np.zeros((len(boxes), len(query)), np.float64)
+    return native.bbox_overlaps(boxes, query)
+
+
+def bbox_overlaps_plain(boxes: np.ndarray, query: np.ndarray) -> np.ndarray:
+    """`bbox_overlaps` in numpy."""
     if len(boxes) == 0 or len(query) == 0:
         return np.zeros((len(boxes), len(query)), np.float64)
     b = boxes[:, None, :]  # (N,1,4)

@@ -72,22 +72,28 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> Dict[str, torch.T
     return out
 
 
+def variable_path(key: str) -> Tuple[Tuple[str, ...], bool]:
+    """Port state_dict key -> (flax path, kernel needing OIHW -> HWIO); the
+    inverse of `torch_key`."""
+    *mods, leaf = key.split(".")
+    if mods[-1] == "bn":
+        col = "batch_stats" if leaf.startswith("running_") else "params"
+        return (col, *mods, _BN_INV[leaf]), False
+    if leaf == "weight":
+        return ("params", *mods, "kernel"), True
+    return ("params", *mods, leaf), False
+
+
 def variables_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of `state_dict_from_variables` (port state_dict -> JAX layout)."""
     flat: Dict[str, np.ndarray] = {}
     for key, t in state.items():
-        *mods, leaf = key.split(".")
-        if leaf == "num_batches_tracked":
+        if key.endswith(".num_batches_tracked"):
             continue
+        path, is_kernel = variable_path(key)
         w = t.detach().cpu().float().numpy()
-        if mods[-1] == "bn":
-            col = "batch_stats" if leaf.startswith("running_") else "params"
-            path = [col, *mods, _BN_INV[leaf]]
-        elif leaf == "weight":
-            path = ["params", *mods, "kernel"]
+        if is_kernel:
             w = np.transpose(w, (2, 3, 1, 0))
-        else:
-            path = ["params", *mods, leaf]
         flat["/".join(path)] = np.ascontiguousarray(w)
     return unflatten(flat)
 
