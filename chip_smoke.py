@@ -136,6 +136,24 @@ Phases, in order; any failure raises and the script exits non-zero:
       (passing, and failing with one corrupted tensor); (d) the C++
       `bbox_overlaps` and `nms` against the numpy loops; readings: the
       seconds of `load_torch_pth` and the serve summary (images/s, p50/p99);
+   l. the alternates that are off by default (`[alternates]`): an s2d
+      Detector (the stem remapped after the bake, a space-to-depth and a
+      2x2 stem) with the fused decode against the 3x3 stem's detections at
+      bs32 @ 640; the scale_and_translate letterbox (cubic) on the card
+      against the port's CPU run on letterboxed 640 inputs, and a bilinear
+      scale_translate Detector against the matmul letterbox's detections; a float32 planar Detector
+      (the engine with no chain) against the float32 module forward; one
+      `ConvBN(as_matmul=True)` forward against the conv on block 1's expand;
+      readings: the s2d and 3x3 stems' ms, alone and in the forward, and
+      the matmul 1x1 against the conv;
+   m. data parallelism (`[dp]`, `runtime/sharding.py`) on a one-rank NCCL
+      process group: `ServingEngine(mesh=data_mesh())` bit-equal to a direct
+      `detect_batch` on the module forward (B2) and on the fast engine (B2,
+      B3); three `shard_train_step` steps at bs32 @ 320 from the flagship
+      weights (the BatchNorm moments, the loss normalizers, the gradients
+      and metrics all-reduced) each against `make_train_step` from the same
+      state under `[train]`'s check 1 bounds; `prefetch_to_device(sharding=)`
+      order and device; the group destroyed before the last lines;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -3074,6 +3092,264 @@ def phase_entry(smi):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# [alternates]: the off-by-default stem, letterbox and 1x1 forms
+# --------------------------------------------------------------------------- #
+
+# The scale_and_translate letterbox (float32 on both devices) on the card
+# against the port's CPU run of the same inputs: raw values reach ~280, where
+# a float32 ulp is 3e-5 and the two devices sum in other orders.
+ST_CARD_CPU_ATOL = 1e-3
+
+
+def _stem_ms(det, x):
+    """Device ms of `det`'s stem alone on the normalized NHWC batch `x` (the
+    space-to-depth included for an s2d model)."""
+    from tpucenterface_torch.model.backbone import space_to_depth
+
+    bb = det.model.backbone
+
+    def run():
+        with torch.inference_mode():
+            y = x.permute(0, 3, 1, 2).to(bb.dtype)
+            return bb.stem(space_to_depth(y) if bb.s2d else y)
+
+    return cuda_ms(run, 20)
+
+
+def phase_alternates(cfg, det, det_f32, d640_module, x, smi):
+    """Path l, the alternates that are off by default (`[alternates]`): (1)
+    an s2d Detector (`ModelConfig(s2d_stem=True)`: the stem remapped after
+    the bake, a 2x space-to-depth and a 2x2 stem, the module forward) with
+    the fused decode against the standard stem's detections at bs32 @ 640;
+    (2) the scale_and_translate letterbox (`resize_impl="scale_translate"`,
+    cubic) on the card against the port's CPU run on letterboxed 640
+    inputs, and a bilinear scale_translate Detector (the matmul letterbox's
+    triangle) against the matmul letterbox's detections there; (3) a float32 planar Detector (the engine with no chain) against
+    the float32 module forward, bs32 @ 640; (4) one `ConvBN(as_matmul=True)`
+    forward against the conv forward on block 1's expand at bs32 @ 640.
+    Returns the launch counts (B2 once a detect_batch call)."""
+    import dataclasses
+
+    from tpucenterface_torch import Detector, ModelConfig, PreprocessConfig
+    from tpucenterface_torch.model.blocks import ConvBN
+    from tpucenterface_torch.preprocess import letterbox_normalize_batch
+
+    b640, g640 = paint_batch(1, 32, (640, 640))
+    lb_imgs, lb_gts, lb_hws = letterboxed_batch(2)
+    det_s2d = Detector.from_safetensors(FLAGSHIP, dataclasses.replace(cfg, model=ModelConfig(s2d_stem=True)))
+    # cubic on its own against the CPU run; bilinear, the matmul letterbox's
+    # own triangle, in the Detector held to the matmul letterbox's detections
+    st_pre = PreprocessConfig(resize_impl="scale_translate", method="cubic")
+    det_st = Detector.from_safetensors(FLAGSHIP, dataclasses.replace(
+        cfg, preprocess=PreprocessConfig(resize_impl="scale_translate", method="bilinear")))
+    planar_f32 = Detector.from_safetensors(
+        FLAGSHIP, dataclasses.replace(cfg, model=ModelConfig(inference_engine="planar", compute_dtype="float32")))
+    stem = det_s2d.variables["params"]["backbone"]["stem"]["conv"]["kernel"]
+    if not (det_s2d.config.model.s2d_stem and np.shape(stem) == (2, 2, 12, 32) and det_s2d._engine is None):
+        raise AssertionError(f"[alternates] the s2d Detector: config {det_s2d.config.model}, stem {np.shape(stem)}")
+    if planar_f32._engine is None or planar_f32._engine.max_chain_res != 0:
+        raise AssertionError("[alternates] the float32 planar Detector has no chainless planar engine")
+
+    zero_launches()
+    d_s2d = det_s2d.detect_batch(b640, score_thresh=0.05)
+    d_st = det_st.detect_batch(lb_imgs, hws=lb_hws, score_thresh=0.05)
+    d_planar = planar_f32.detect_batch(b640, score_thresh=0.05)
+    launches = read_launches()
+    log(f"[alternates] s2d, scale_translate and float32 planar detect_batch: kernel launches {launches}")
+    if launches != launch_counts(decode_feats_fused=3):
+        raise AssertionError(f"[alternates] launches {launches}: wanted B2 once a detect_batch call")
+
+    # (1) the s2d stem against the 3x3 stem
+    check_result(d_s2d, g640, [(640, 640)] * 32, "s2d Detector detect_batch bs32 640x640")
+    n, bad = count_unmatched(d_s2d, d640_module)
+    log(f"[alternates] (1) s2d against the 3x3 stem, bs32@640, detections >= {BF16_FIRM} without a partner within "
+        f"{BF16_BOX_ATOL} px and {BF16_SCORE_ATOL} (both ways): {bad} of {n}")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[alternates] (1) the s2d Detector: {bad} of {n} detections differ from the 3x3 stem's")
+
+    # (2) the scale_and_translate letterbox, card against CPU, and its detections
+    with torch.inference_mode():
+        card = letterbox_normalize_batch(torch.from_numpy(lb_imgs).cuda(), torch.from_numpy(lb_hws).cuda(), 640,
+                                         st_pre, raw=True)
+        cpu = letterbox_normalize_batch(torch.from_numpy(lb_imgs[:4]), torch.from_numpy(lb_hws[:4]), 640, st_pre,
+                                        raw=True)
+    err = max((card[0][:4].cpu() - cpu[0]).abs().max().item(), (card[1][:4].cpu() - cpu[1]).abs().max().item(),
+              (card[2][:4].cpu() - cpu[2]).abs().max().item())
+    check_result(d_st, lb_gts, lb_hws, "scale_translate Detector detect_batch bs32 letterboxed to 640")
+    d_mm = det.detect_batch(lb_imgs, hws=lb_hws, score_thresh=0.05)
+    n, bad = count_unmatched(d_st, d_mm)
+    log(f"[alternates] (2) scale_translate letterbox (cubic, float32), card against CPU on 4 letterboxed 640 "
+        f"images: max |diff| {err:.3g} (bound {ST_CARD_CPU_ATOL}); the bilinear scale_translate Detector against "
+        f"the matmul letterbox's, bs32 letterboxed: {bad} of {n} detections >= {BF16_FIRM} without a partner")
+    if err > ST_CARD_CPU_ATOL:
+        raise AssertionError(f"[alternates] (2) the scale_translate letterbox: card and CPU {err} apart")
+    if n < 100 or bad > (1.0 - FAST_MATCH_SHARE) * n:
+        raise AssertionError(f"[alternates] (2) the scale_translate Detector: {bad} of {n} detections differ")
+
+    # (3) the float32 planar Detector against the float32 module forward
+    d_f32 = det_f32.detect_batch(b640, score_thresh=0.05)
+    s_err = max((np.abs(a.scores - b.scores).max() if len(a.scores) else 0.0) for a, b in zip(d_planar, d_f32))
+    b_err = max((np.abs(a.boxes - b.boxes).max() if len(a.boxes) else 0.0) for a, b in zip(d_planar, d_f32))
+    same_n = all(len(a.scores) == len(b.scores) for a, b in zip(d_planar, d_f32))
+    log(f"[alternates] (3) float32 planar engine (no chain) against the float32 module forward, bs32@640: "
+        f"same counts {same_n}, max |score diff| {s_err:.3g}, max |box diff| {b_err:.3g} px")
+    if not same_n or s_err > SCORE_ATOL or b_err > BOX_ATOL:
+        raise AssertionError("[alternates] (3) the float32 planar Detector differs from the float32 module forward")
+
+    # (4) as_matmul against the conv, block 1's expand (folded, bfloat16)
+    expand = det.model.backbone.block_1.expand
+    mm = ConvBN(expand.conv.in_channels, expand.conv.out_channels, kernel=1, folded=True, dtype=expand.dtype,
+                as_matmul=True).cuda().requires_grad_(False)
+    mm.conv.load_state_dict(expand.conv.state_dict())
+    with torch.inference_mode():
+        bb = det.model.backbone
+        y = bb.block_0(bb.stem(x.permute(0, 3, 1, 2).to(bb.dtype)))
+        got, want = mm(y), expand(y)
+    diff = (got.float() - want.float()).abs()
+    ulp = 2.0 ** -8 * want.float().abs().max().item()
+    over = (diff > 2.0 ** -7 * want.float().abs() + ulp).sum().item()
+    with torch.inference_mode():
+        mm_ms, conv_ms = cuda_ms(lambda: mm(y), 20), cuda_ms(lambda: expand(y), 20)
+    log(f"[alternates] (4) ConvBN(as_matmul=True) against the conv on block 1's expand {tuple(y.shape)} -> "
+        f"{tuple(want.shape)} bfloat16: max |diff| {diff.max().item():.3g}, {over} values beyond one bfloat16 "
+        f"step; ms matmul {mm_ms:.4f} against conv {conv_ms:.4f} ({smi})")
+    if over:
+        raise AssertionError(f"[alternates] (4) as_matmul: {over} values beyond one bfloat16 step of the conv")
+
+    # readings: the s2d stem against the 3x3 stem, stem alone and whole forward
+    with torch.inference_mode():
+        x_s2d = x  # both take the same raw, stem-baked input
+        fwd = {"3x3": cuda_ms(lambda: det._forward(x), 10), "s2d": cuda_ms(lambda: det_s2d._forward(x_s2d), 10)}
+    stems = {"3x3": _stem_ms(det, x), "s2d": _stem_ms(det_s2d, x)}
+    log(f"[alternates] readings bs32@640 ({smi}): stem alone ms {json.dumps(stems)}, forward ms {json.dumps(fwd)}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# [dp]: data parallelism on a one-rank NCCL group
+# --------------------------------------------------------------------------- #
+
+DP_TRAIN_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _dp_serving(det, mesh, reqs, what):
+    """`ServingEngine(mesh=)` at 32 a launch on `reqs` (32-image requests)
+    against a direct `detect_batch` of each: bit for bit (one device: the
+    same program on the same rows). Returns (engine launches, direct
+    calls)."""
+    from tpucenterface_torch.runtime.serving import ServingEngine
+
+    with ServingEngine(det, (640, 640), device_batch=32, score_thresh=0.05, mesh=mesh) as eng:
+        got = [f.result(timeout=SERVING_TIMEOUT_S) for f in [eng.submit(r) for r in reqs]]
+        stats = eng.stats()
+    want = [det.detect_batch(r, score_thresh=0.05) for r in reqs]
+    same = all(_same_dets(a, b) for a, b in zip(got, want))
+    log(f"[dp] ServingEngine(mesh=data_mesh()) on the {what}: {stats['launches']} launches of 32, pinned "
+        f"{stats['pinned_launches']}; bit-equal to detect_batch: {same}")
+    if not same or stats["launches"] != len(reqs) or stats["pinned_launches"]:
+        raise AssertionError(f"[dp] the {what}: the DP engine differs from detect_batch or staged otherwise")
+    return stats["launches"], len(reqs)
+
+
+def _dp_train(mesh):
+    """DP_TRAIN_STEPS `shard_train_step` steps at TRAIN_BATCH @ TRAIN_SIZE,
+    each against `make_train_step` from the same state, under the bounds of
+    `[train]`'s check 1 (`check_step_against`; the gradients read from
+    Adam's first moment)."""
+    from tpucenterface_torch.config import ModelConfig, TrainConfig
+    from tpucenterface_torch.model.centernet import CenterFaceNet
+    from tpucenterface_torch.runtime.sharding import put_sharded
+    from tpucenterface_torch.train import step as ts
+    from tpucenterface_torch.weights.io import load_safetensors
+
+    tcfg = TrainConfig(input_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, max_objs=32, lr=2e-3, ema_decay=0.999,
+                       grad_clip_norm=5.0)
+    tx = ts.make_optimizer(tcfg)
+    step = ts.make_train_step(CenterFaceNet(ModelConfig(compute_dtype="float32")), tx, tcfg)
+    state = ts.train_state_from_variables(load_safetensors(FLAGSHIP), tx, ema=True, device="cuda")
+    dstep, state = ts.shard_train_step(step, mesh, state)
+    b1 = 0.9
+    for k in range(DP_TRAIN_STEPS):
+        batch = stack_samples(train_samples(70 + k, TRAIN_BATCH, TRAIN_SIZE, tcfg.max_objs))
+        mu0 = _np_tree(state.opt_state["mu"])
+        out = {}
+        for name, run, feed in (("dp", dstep, put_sharded(batch, mesh)), ("plain", step, to_device(batch, "cuda")),
+                                ("plain again", step, to_device(batch, "cuda"))):
+            new, metrics = run(state, feed)
+            mu = _np_tree(new.opt_state["mu"])
+            grads = {p: (mu[p] - b1 * mu0[p]) / (1 - b1) for p in mu}
+            out[name] = (grads, {k2: float(v) for k2, v in metrics.items()}, _np_tree(new.params),
+                         _np_tree(new.batch_stats), _np_tree(new.ema_params)), new
+        apart = {name: max(float(np.abs(out[name][0][2][p] - out["plain"][0][2][p]).max()) / tcfg.lr
+                           for p in out["plain"][0][2]) for name in ("dp", "plain again")}
+        log(f"[dp] step {k + 1}: largest |param difference| / lr against the plain step: DP {apart['dp']:.3g}, the "
+            f"plain step run again from the same state {apart['plain again']:.3g} (cuDNN's default algorithms)")
+        check_step_against(out["dp"][0], out["plain"][0], tcfg.lr,
+                           f"[dp] step {k + 1} of {DP_TRAIN_STEPS}, shard_train_step against make_train_step, "
+                           f"bs{TRAIN_BATCH}@{TRAIN_SIZE}")
+        state = out["dp"][1]
+
+
+def phase_dp(det, det_fast, smi):
+    """Path m, data parallelism (`[dp]`, `runtime/sharding.py`) on a
+    one-rank NCCL process group (a free local port): (1)
+    `ServingEngine(mesh=data_mesh())` against a direct `detect_batch` on the
+    module forward (B2) and on the fast engine (B2, B3); (2)
+    DP_TRAIN_STEPS `shard_train_step` steps (the BatchNorm moments, loss
+    normalizers, gradients and metrics all-reduced) against
+    `make_train_step`; (3) `prefetch_to_device(sharding=batch_sharding(mesh))`
+    keeps the order and puts each batch on the mesh's card. The group is
+    destroyed at the end. Returns the launch counts."""
+    import torch.distributed as dist
+
+    from tpucenterface_torch.runtime.prefetch import prefetch_to_device
+    from tpucenterface_torch.runtime.sharding import ShardedTensor, batch_sharding, data_mesh, maybe_init_distributed
+
+    if not maybe_init_distributed(coordinator_address=f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0):
+        raise AssertionError("[dp] no process group")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"[dp] the group's backend is {dist.get_backend()}, not NCCL")
+        mesh = data_mesh()
+        log(f"[dp] process group: backend nccl, world {dist.get_world_size()}, mesh {mesh}")
+        if (mesh.size, mesh.devices) != (1, (torch.device("cuda", torch.cuda.current_device()),)):
+            raise AssertionError(f"[dp] mesh {mesh}")
+        reqs = [paint_batch(80 + i, 32, (640, 640))[0] for i in range(2)]
+        zero_launches()
+        lm, cm = _dp_serving(det, mesh, reqs, "module forward")
+        lf, cf = _dp_serving(det_fast, mesh, reqs, "fast engine")
+        launches = read_launches()
+        blocks = len(det_fast._engine.kernel_blocks(640))
+        want = launch_counts(decode_feats_fused=lm + cm + lf + cf, fused_mbconv=blocks * (lf + cf))
+        log(f"[dp] (1) kernel launches {launches}")
+        if launches != want:
+            raise AssertionError(f"[dp] (1) launches {launches}; wanted {want}")
+        _dp_train(mesh)
+        batches = [{"x": np.full((TRAIN_BATCH, 4), i, np.float32)} for i in range(5)]
+        out = list(prefetch_to_device(iter(batches), size=2, sharding=batch_sharding(mesh)))
+        ok = len(out) == 5 and all(
+            isinstance(b["x"], ShardedTensor) and b["x"].devices == mesh.devices
+            and float(b["x"].shards[0][0, 0]) == i and b["x"].shape == (TRAIN_BATCH, 4) for i, b in enumerate(out))
+        log(f"[dp] (3) prefetch_to_device(sharding=) order and device: {ok}")
+        if not ok:
+            raise AssertionError("[dp] (3) prefetch_to_device(sharding=) lost the order or the device")
+    finally:
+        dist.destroy_process_group()
+    log(f"[dp] passed on {smi}")
+    return launches
+
+
 def normalize_raw(det, imgs, dev):
     """The identity-path input of `det` for uint8 images at its size."""
     from tpucenterface_torch.preprocess import normalize_images
@@ -3559,7 +3835,9 @@ def main() -> int:
              phase_serving(cfg, det, det_fast, quant_dets["b7"], smi),
              phase_train(cfg, smi),
              phase_quant_ft(cfg, smi, quant_dets["b7"]),
-             phase_entry(smi)]
+             phase_entry(smi),
+             phase_alternates(cfg, det, det_f32, d640, x, smi),
+             phase_dp(det, det_fast, smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

@@ -98,7 +98,7 @@ def test_import_leaves_jax_out():
         "tpucenterface_torch.kernels.sweep_b4b, tpucenterface_torch.kernels.sweep_b2, "
         "tpucenterface_torch.decode, tpucenterface_torch.data.wider, tpucenterface_torch.eval.wider_eval, "
         "tpucenterface_torch.eval.tta, tpucenterface_torch.eval.batch_runner, "
-        "tpucenterface_torch.eval.synth_eval; "
+        "tpucenterface_torch.eval.synth_eval, tpucenterface_torch.runtime.sharding; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpucenterface')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -540,3 +540,105 @@ def test_decode_feats_is_exported_as_in_jax():
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-6)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
     assert callable(boxes_to_original)
+
+
+# --------------------------------------------------------------------------- #
+# faults found against the JAX Detector (ROADMAP.md §C: C1-C4)
+# --------------------------------------------------------------------------- #
+
+
+def _engine(cfg, name):
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, inference_engine=name))
+
+
+@pytest.fixture(scope="module")
+def unfolded_ref(flagship_vars, scenes):
+    """The JAX Detector over the unfolded flagship (bfloat16): it runs its
+    module forward whatever the engine name, so one serves both cases."""
+    _, jax_cfg = _configs("bfloat16")
+    ref = JDetector(variables=flagship_vars, config=_engine(jax_cfg, "planar"), fold_bn=False)
+    assert ref._engine is None and not ref.config.model.folded
+    return ref.detect_batch(scenes, score_thresh=THRESH)
+
+
+@pytest.mark.parametrize("engine", ["planar", "fast"])
+def test_engine_over_unfolded_weights_runs_the_module_forward(flagship_vars, scenes, unfolded_ref, engine):
+    """C1: an engine over unfolded weights (`fold_bn=False`) leaves the
+    module forward to run, as the JAX Detector does
+    (`tpucenterface/detector.py:146-150`); the bfloat16 bounds of
+    `test_flagship_bf16_matches_jax`."""
+    port_cfg, _ = _configs("bfloat16")
+    port = T.Detector(variables=flagship_vars, config=_engine(port_cfg, engine), fold_bn=False, device="cpu")
+    assert port._engine is None and not port.config.model.folded
+    for a, b in zip(port.detect_batch(scenes, score_thresh=THRESH), unfolded_ref):
+        assert (a.scores >= 0.1).sum() > 0
+        match_detections(a, b, box_atol=2.0, score_atol=0.03, firm=0.1)
+
+
+def test_planar_float32_detector_matches_jax(flagship_vars, scenes):
+    """C4: a float32 planar Detector builds the planar engine without the
+    bfloat16 chain kernel (`max_chain_res=0`, the JAX Detector's setting,
+    `tpucenterface/detector.py:154`) and gives JAX's detections (float32
+    bounds: 1e-5 in score, 1e-3 px)."""
+    port_cfg, jax_cfg = _configs("float32")
+    port = T.Detector.from_safetensors(ARTIFACT, _engine(port_cfg, "planar"), device="cpu")
+    ref = JDetector(variables=flagship_vars, config=_engine(jax_cfg, "planar"))
+    assert port._engine is not None and port._engine.max_chain_res == 0 and ref._engine is not None
+    hws = np.array([[384, 512], [300, 512], [384, 401]], np.int32)
+    for a, b in zip(port.detect_batch(scenes, hws=hws, score_thresh=0.0),
+                    ref.detect_batch(scenes, hws=hws, score_thresh=0.0)):
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-5)
+        np.testing.assert_allclose(a.boxes, b.boxes, atol=1e-3)
+
+
+def test_fast_float32_detector_runs_the_module_forward(f32_pair, scenes):
+    """C4, the port's own engine: the fused MBConv kernel computes in
+    bfloat16, so a float32 "fast" Detector runs the module forward, as the
+    JAX Detector does for every engine name but "planar"; JAX's detections
+    within the float32 bounds."""
+    port_cfg, _ = _configs("float32")
+    fast = T.Detector.from_safetensors(ARTIFACT, _engine(port_cfg, "fast"), device="cpu")
+    assert fast._engine is None
+    for a, b in zip(fast.detect_batch(scenes, score_thresh=0.0), f32_pair[1].detect_batch(scenes, score_thresh=0.0)):
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-5)
+        np.testing.assert_allclose(a.boxes, b.boxes, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int64])
+def test_non_uint8_images_go_in_as_they_are(f32_pair, dtype):
+    """C2: `detect` and `detect_batch` feed a float32 or int64 image to the
+    program as it is, as the JAX Detector does (`tpucenterface/detector.py:
+    771, 796`), instead of casting it to uint8 (float32 bounds)."""
+    port, ref = f32_pair
+    rng = np.random.RandomState(12)
+    img = (rng.rand(50, 70, 3) * 255).astype(dtype)
+    a, b = port.detect(img, score_thresh=0.0), ref.detect(img, score_thresh=0.0)
+    np.testing.assert_allclose(a.scores, b.scores, atol=1e-5)
+    np.testing.assert_allclose(a.boxes, b.boxes, atol=1e-3)
+    batch = np.stack([img, img[::-1]])
+    for a, b in zip(port.detect_batch(batch, score_thresh=0.0), ref.detect_batch(batch, score_thresh=0.0)):
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-5)
+        np.testing.assert_allclose(a.boxes, b.boxes, atol=1e-3)
+
+
+def test_load_safetensors_takes_a_config_and_stage_available():
+    """C3: `weights.io.load_safetensors(path, cfg)` takes JAX's second
+    parameter, which decides nothing (the tree equals the one-argument
+    call's), and `native.stage_available()` answers whether the staging
+    library builds and loads, as the JAX function does (g++ is here)."""
+    from tpucenterface import native as jnative
+    from tpucenterface_torch import native
+    from tpucenterface_torch.weights.io import load_safetensors
+
+    a = load_safetensors(ARTIFACT, T.ModelConfig())
+    b = load_safetensors(ARTIFACT)
+    from tpucenterface_torch.train.step import tree_paths
+
+    pa, pb = tree_paths(a), tree_paths(b)
+    assert [p for p, _ in pa] == [p for p, _ in pb]
+    for (_, x), (_, y) in zip(pa, pb):
+        np.testing.assert_array_equal(x, y)
+    assert native.stage_available() is True
+    assert native.stage_available() == jnative.stage_available()

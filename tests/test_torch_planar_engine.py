@@ -280,9 +280,15 @@ def test_detector_planar_matches_module_forward_and_jax():
 
 
 def test_detector_planar_needs_bfloat16_and_a_card_or_cpu():
+    """The chain kernel computes in bfloat16: the engine refuses chains in
+    another dtype, so a float32 planar Detector builds its engine with no
+    chain (`max_chain_res=0`, the JAX Detector's own setting; its detections
+    against JAX's are in tests/test_torch_detector.py)."""
     cfg = T.DetectorConfig(model=T.ModelConfig(inference_engine="planar", compute_dtype="float32"), default_size=64)
+    det = T.Detector(config=cfg, device="cpu")
+    assert isinstance(det._engine, PlanarEngine) and det._engine.max_chain_res == 0
     with pytest.raises(ValueError, match="bfloat16"):
-        T.Detector(config=cfg, device="cpu")
+        PlanarEngine(det.variables, det.config.model, max_chain_res=80, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.Detector(config=T.DetectorConfig(model=T.ModelConfig(inference_engine="planar")))

@@ -103,9 +103,18 @@ def test_normalize_images_equal(raw, dtype):
 
 
 def test_scale_and_translate_not_ported():
+    """The `scale_and_translate` letterbox, once refused, is ported: both
+    entry points against JAX's (float32, atol 1e-4 on normalized values;
+    tests/test_torch_alternates.py covers the methods, raw mode and odd
+    sizes), and `nearest` raises as in JAX."""
     imgs, hws = _images(4, b=1)
     cfg = PreprocessConfig(resize_impl="scale_translate")
-    with pytest.raises(NotImplementedError):
-        tp.letterbox_normalize_batch(torch.from_numpy(imgs), torch.from_numpy(hws), SIZE, cfg)
-    with pytest.raises(NotImplementedError):
-        tp.letterbox_normalize(torch.from_numpy(imgs[0]), torch.from_numpy(hws[0]), SIZE, cfg)
+    got = tp.letterbox_normalize_batch(torch.from_numpy(imgs), torch.from_numpy(hws), SIZE, cfg)[0]
+    want = jp.letterbox_normalize_batch(jnp.asarray(imgs), jnp.asarray(hws), SIZE,
+                                        JPre(resize_impl="scale_translate"))[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    one = tp.letterbox_normalize(torch.from_numpy(imgs[0]), torch.from_numpy(hws[0]), SIZE, cfg)[0]
+    np.testing.assert_allclose(one.numpy(), np.asarray(want[0]), rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="Nearest"):
+        tp.letterbox_normalize(torch.from_numpy(imgs[0]), torch.from_numpy(hws[0]), SIZE,
+                               PreprocessConfig(resize_impl="scale_translate", method="nearest"))

@@ -43,7 +43,7 @@ def test_prefetch_keeps_order_and_values(size):
 
 
 def test_prefetch_refuses_what_it_cannot_do():
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Sharding"):
         list(prefetch_to_device(iter(_batches(1)), device="cpu", sharding=object()))
     with pytest.raises(ValueError):
         list(prefetch_to_device(iter(_batches(1)), size=0, device="cpu"))

@@ -2,9 +2,8 @@
 the Detector's atomic swaps, on the CPU.
 
 - The port's counterpart of every case of tests/test_serving.py but those of
-  `mesh=` (data-parallel serving is not ported: it raises
-  NotImplementedError, tested here) and of `bench/slo_sweep.py` (not
-  ported). As in the JAX file: model input 64, float32 compute, one
+  `mesh=` (in tests/test_torch_sharding.py) and of `bench/slo_sweep.py`
+  (not ported). As in the JAX file: model input 64, float32 compute, one
   module-scoped Detector (random weights from a seed); a coalesced launch
   against a direct `detect_batch` of the same images within 1e-5 in score
   and 1e-3 px, as the JAX file states.
@@ -642,9 +641,11 @@ def test_staging_plain_matches_formatted(det):
 
 
 def test_mesh_is_not_ported(det):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """`mesh=` is ported (tests/test_torch_sharding.py); what is not a
+    `runtime.sharding.Mesh` is refused at construction."""
+    with pytest.raises(TypeError, match="Mesh"):
         ServingEngine(det, HW, device_batch=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Mesh"):
         ServingRouter(det, device_batch=8, mesh=object())
 
 

@@ -180,8 +180,22 @@ def test_export_read_by_jax_and_detections_match(tiny_dataset, tmp_path):
 
 
 def test_train_refuses_several_devices(tiny_dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    """Two devices in one process without a process group: data-parallel
+    training runs one process per device (tests/test_torch_multiprocess.py)."""
+    with pytest.raises(ValueError, match="n_devices=2"):
         _run(tiny_dataset, tmp_path / "r", 1, n_devices=2)
+
+
+@pytest.mark.parametrize("n_devices", [None, 1])
+def test_train_without_a_card_raises(tiny_dataset, tmp_path, monkeypatch, n_devices):
+    """With no device named, no process group and no card (CUDA hidden),
+    `train` raises before it writes anything: nothing falls back to the
+    CPU, with or without `n_devices`."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(tiny_dataset, model_cfg=ModelConfig(**MODEL), train_cfg=_tcfg(), workdir=str(tmp_path / "r"),
+                   max_steps=1, n_devices=n_devices)
+    assert not (tmp_path / "r").exists()
 
 
 def test_logger_prints_as_jax(capsys):

@@ -2,7 +2,11 @@
 
 Mirrors `tpucenterface/cli/train.py`, with the same arguments and `--device`
 (the GPU unless it names another, e.g. `--device cpu`). The data pipeline
-decodes and warps with `cv2`."""
+decodes and warps with `cv2`. Data-parallel: start one process per card with
+TPUCF_COORDINATOR=host:port, TPUCF_NUM_PROCS and TPUCF_PROC_ID set (or
+TPUCF_MULTIHOST=1 and torch's own variables); each joins the process group
+(`runtime.sharding.maybe_init_distributed`) and trains its rows of every
+global batch; with `--device cpu` the group runs on gloo."""
 
 from __future__ import annotations
 
@@ -51,9 +55,17 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="torch device (default: the GPU)")
     args = p.parse_args(argv)
 
+    import torch
+
     from tpucenterface_torch.config import ModelConfig, TrainConfig
     from tpucenterface_torch.data.wider import parse_bbx_gt, parse_retinaface_gt
+    from tpucenterface_torch.runtime.sharding import maybe_init_distributed
     from tpucenterface_torch.train.loop import train
+
+    # a no-op unless the TPUCF_* variables ask for a group: NCCL, or gloo
+    # when the run is asked onto the CPU
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    maybe_init_distributed(backend="gloo" if cpu else None)
 
     images = os.path.join(args.wider_root, "WIDER_train", "images")
     if args.gt_format == "retinaface":

@@ -49,7 +49,9 @@ class ModelConfig:
     folded: bool = False
     # Head branches merged into one wide conv + block-diagonal 1x1.
     fused_heads: bool = False
-    # Space-to-depth stem; not ported yet (the model raises when it is set).
+    # Space-to-depth stem: a 2x space-to-depth of the input and a 2x2/s1
+    # conv in place of the 3x3/s2 stem (the same function after
+    # weights.fold.s2d_remap_stem); needs even input sides.
     s2d_stem: bool = False
     # Input normalization baked into the folded stem conv: the model is fed
     # mean-centered raw pixels `u - 255*mean`.
@@ -96,7 +98,8 @@ class PreprocessConfig:
     bgr_input: bool = True
     center: bool = True
     method: str = "bilinear"
-    # 'matmul' is the only resize the port has; any other value raises.
+    # 'matmul': the bilinear letterbox as two products; any other value:
+    # jax.image.scale_and_translate's resize with `method`, in float32
     resize_impl: str = "matmul"
     resize_dtype: str = "bfloat16"
     stem_bake: bool = True

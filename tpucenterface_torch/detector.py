@@ -56,7 +56,13 @@ stages a launch into XLA's preferred input layouts, the port stages it
 through a ring of reused pinned host buffers and a copy stream
 (`PinnedStaging`), so that the copy of launch N+1 runs beside program N.
 
-Not ported yet: the space-to-depth stem.
+The space-to-depth stem (`ModelConfig.s2d_stem`) follows the JAX
+Detector's rules: a 3x3 stem is remapped after the stem bake when every
+bucket and `default_size` are even; a model built with the 2x2 stem is an s2d
+model and skips the bake; either way the folded config says `s2d_stem=True`.
+An engine runs only where it can (`_build_engine`); an s2d model, unfolded
+weights or, for the fast engine, a compute dtype other than bfloat16 take the
+module forward.
 """
 
 from __future__ import annotations
@@ -211,6 +217,29 @@ def _decode_with(cfg, feats: Dict[str, torch.Tensor], max_dets: Optional[int] = 
     return boxes, scores, lm
 
 
+def _build_engine(variables: Dict[str, Any], model_cfg, device):
+    """The forward engine `model_cfg.inference_engine` names, or None for
+    the module forward. As in the JAX Detector, an engine is built only
+    where it runs the model: folded weights and the 3x3 stem (an s2d model
+    keeps the module forward); otherwise the module forward runs. The fast
+    engine's kernel computes in bfloat16 only, so another compute dtype
+    takes the module forward, as the JAX Detector does for every name but
+    "planar"; the planar engine chains stride-1 blocks through its kernel in
+    bfloat16 and, in another dtype, runs with no chain (`max_chain_res=0`,
+    the JAX Detector's own setting). A name no engine has raises."""
+    name = model_cfg.inference_engine
+    if name not in ("flax", "fast", "planar"):
+        raise NotImplementedError(f"the port has no '{name}' inference engine")
+    if not model_cfg.folded or model_cfg.s2d_stem:
+        return None
+    bf16 = model_cfg.compute_dtype == "bfloat16"
+    if name == "fast" and bf16:
+        return FastEngine(variables, model_cfg, use_mbconv_kernel=True, device=device)
+    if name == "planar":
+        return PlanarEngine(variables, model_cfg, max_chain_res=PLANAR_CHAIN_RES if bf16 else 0, device=device)
+    return None
+
+
 class _Generation(NamedTuple):
     """One generation of a Detector's weights and forward, as one swap left
     them: what a program built at `version` runs, whatever swap follows."""
@@ -254,43 +283,36 @@ class Detector:
         if variables is None:
             _, variables = init_model(config.model, seed=seed)
         if fold_bn and not config.model.folded and "batch_stats" in variables:
-            stem_kh = int(np.shape(variables["params"]["backbone"]["stem"]["conv"]["kernel"])[0])
-            if config.model.s2d_stem or stem_kh != 3:
-                raise NotImplementedError("the port has no space-to-depth stem yet")
             fuse = config.model.head_conv > 0
-            bake = config.preprocess.stem_bake
+            # the space-to-depth stem needs every input even: remap only then
+            s2d = (
+                config.model.s2d_stem
+                and all(b % 2 == 0 for b in config.buckets)
+                and config.default_size % 2 == 0
+            )
+            # a model built with s2d_stem=True carries the 2x2 stem already;
+            # only a 3x3 stem is remapped, and only a 3x3 stem takes the bake
+            stem_kh = int(np.shape(variables["params"]["backbone"]["stem"]["conv"]["kernel"])[0])
+            bake = config.preprocess.stem_bake and stem_kh == 3
             variables = fold_variables(
                 variables,
                 bn_eps=config.model.bn_eps,
                 fuse_heads=fuse,
+                s2d_stem=s2d and stem_kh == 3,
                 bake_preprocess=config.preprocess if bake else None,
             )
             self.config = dataclasses.replace(
                 config,
                 model=dataclasses.replace(
-                    config.model, folded=True, fused_heads=fuse, stem_preprocess=bake
+                    config.model, folded=True, fused_heads=fuse, s2d_stem=s2d or stem_kh == 2, stem_preprocess=bake
                 ),
             )
         self.variables = variables
-        engine = self.config.model.inference_engine
-        if engine not in ("flax", "fast", "planar"):
-            raise NotImplementedError(f"the port has no '{engine}' inference engine")
         # An engine holds its own copies of the block weights beside the
         # network it builds; `model` is that network, so there is one of it.
-        # Both engines need a folded model and raise otherwise.
-        self._engine = None
-        if engine == "fast":
-            self._engine = FastEngine(
-                variables, self.config.model, use_mbconv_kernel=True, device=self.device
-            )
-            self.model = self._engine.net
-        elif engine == "planar":
-            self._engine = PlanarEngine(
-                variables, self.config.model, max_chain_res=PLANAR_CHAIN_RES, device=self.device
-            )
-            self.model = self._engine.net
-        else:
-            self.model = load_network(variables, self.config.model, self.device)
+        self._engine = _build_engine(variables, self.config.model, self.device)
+        self.model = self._engine.net if self._engine is not None else load_network(
+            variables, self.config.model, self.device)
         self._quant: Optional[QuantEngine] = None  # set by quantize()
         self.last_qat_metrics = None  # quantize(qat_steps=) metrics
         self.last_adaround_report = None  # quantize(adaround_steps=) report
@@ -312,7 +334,7 @@ class Detector:
     def from_safetensors(
         cls, path: str, config: DetectorConfig = DetectorConfig(), device=None
     ) -> "Detector":
-        return cls(variables=load_safetensors(path), config=config, device=device)
+        return cls(variables=load_safetensors(path, config.model), config=config, device=device)
 
     @classmethod
     def from_torch_pth(
@@ -337,7 +359,7 @@ class Detector:
         program built after it runs on the new. An active int8 forward is
         dropped: quantize() again for the new weights."""
         if safetensors_path is not None:
-            variables = load_safetensors(safetensors_path)
+            variables = load_safetensors(safetensors_path, self._init_config.model)
         elif torch_pth_path is not None:
             variables = load_torch_pth(torch_pth_path, self._init_config.model)
         elif variables is None:
@@ -354,6 +376,19 @@ class Detector:
             self._quant = None
             self.weights_version += 1
             self._fn_cache.clear()
+
+    def replica(self, device) -> "Detector":
+        """A Detector on `device` running this one's current weights and
+        forward (the engine, and the int8 forward with its scales and
+        params), read together under `_fn_lock`: a data-parallel launch's
+        program on another device. It does not follow later swaps; callers
+        key it on the `weights_version` it was made at."""
+        with self._fn_lock:
+            variables, config, quant = self.variables, self.config, self._quant
+        rep = Detector(variables=variables, config=config, device=device, fold_bn=False)
+        if quant is not None:
+            rep.quantize(scales=_export_scales(quant), quant_params=quant.p, fused_blocks=quant.fused_blocks)
+        return rep
 
     # ------------------------------------------------------------------ #
     # the int8 forward
@@ -574,17 +609,17 @@ class Detector:
         dev = self.device
 
         def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
+            # the rows come from the inputs, not from `batch`: a data-parallel
+            # launch runs the program on each device's share of the batch
+            n = imgs_u8.shape[0]
             with torch.inference_mode():
-                if int8_in:
-                    # already quantized through the stem's table on the host;
-                    # the engine's stem takes int8 as it is (QuantEngine._conv)
-                    x = imgs_u8
-                    scales = torch.ones((batch,), dtype=torch.float32, device=dev)
-                    pads = torch.zeros((batch, 2), dtype=torch.float32, device=dev)
-                elif identity:
-                    x = normalize_images(imgs_u8, pp, raw=raw)
-                    scales = torch.ones((batch,), dtype=torch.float32, device=dev)
-                    pads = torch.zeros((batch, 2), dtype=torch.float32, device=dev)
+                if int8_in or identity:
+                    # int8_in: already quantized through the stem's table on
+                    # the host; the engine's stem takes int8 as it is
+                    # (QuantEngine._conv)
+                    x = imgs_u8 if int8_in else normalize_images(imgs_u8, pp, raw=raw)
+                    scales = torch.ones((n,), dtype=torch.float32, device=dev)
+                    pads = torch.zeros((n, 2), dtype=torch.float32, device=dev)
                 else:
                     x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
                 boxes, scores, lm = _decode_with(cfg.decode, gen.forward(x), max_dets)
@@ -718,7 +753,8 @@ class Detector:
     ) -> Detections:
         """Detect faces in one HxWx3 uint8 (BGR by default) image; boxes in
         original pixel coordinates, scores descending, filtered at
-        `score_thresh`."""
+        `score_thresh`. Another dtype goes to the program as it is, as in the
+        JAX Detector: the letterbox casts the pixels to its resize dtype."""
         if image.ndim != 3 or image.shape[2] != 3:
             raise ValueError(f"detect() expects an HxWx3 color image, got shape {image.shape}")
         thresh = self.config.decode.score_thresh if score_thresh is None else score_thresh
@@ -728,7 +764,7 @@ class Detector:
         identity = self._identity_for(padded.shape[:2], size, (h, w))
         fn = self._single_fn(padded.shape[:2], size, identity=identity)
         out = fn(
-            torch.from_numpy(np.ascontiguousarray(padded, np.uint8)).to(self.device),
+            torch.from_numpy(np.ascontiguousarray(padded)).to(self.device),
             torch.tensor([h, w], dtype=torch.int32, device=self.device),
         )
         boxes, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
@@ -744,8 +780,9 @@ class Detector:
         size: Optional[int] = None,
     ) -> List[Detections]:
         """Batched detect over images of one padded shape (B, Hp, Wp, 3)
-        uint8; `hws` (B, 2) gives each image's content size (default: the
-        whole padded shape)."""
+        uint8 (another dtype goes to the program as it is, as in `detect`);
+        `hws` (B, 2) gives each image's content size (default: the whole
+        padded shape)."""
         thresh = self.config.decode.score_thresh if score_thresh is None else score_thresh
         size = size or self.config.default_size
         b = images.shape[0]
@@ -753,7 +790,7 @@ class Detector:
             hws = np.tile(np.array(images.shape[1:3], np.int32), (b, 1))
         identity = self._identity_for(images.shape[1:3], size, hws)
         fn = self._batch_fn(b, images.shape[1:3], size, identity=identity)
-        res = fn(*stage_inputs(None, np.asarray(images, np.uint8), hws, self.device))
+        res = fn(*stage_inputs(None, np.asarray(images), hws, self.device))
         return self.results_to_detections(res, thresh)
 
     def warmup(self, shapes=((640, 640),), size: Optional[int] = None) -> None:

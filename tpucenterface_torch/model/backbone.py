@@ -2,7 +2,10 @@
 
 Mirrors `tpucenterface/model/backbone.py::backbone_plan` and
 `::MobileNetV2Backbone`. Blocks are named `block_<i>` like the flax scopes, so
-`weights.convert` maps parameters one for one.
+`weights.convert` maps parameters one for one. With `ModelConfig.s2d_stem`
+the input goes through a 2x space-to-depth, channels in the JAX order
+(dy, dx, c), and a 2x2 / stride-1 stem padded ((1, 0), (1, 0)): the 3x3 /
+stride-2 stem exactly, given `weights.fold.s2d_remap_stem`'s kernel.
 """
 
 from __future__ import annotations
@@ -53,22 +56,36 @@ def block_kwargs(cfg: ModelConfig) -> dict:
     )
 
 
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, 4C, H/2, W/2), channels_last, channel (dy*2 + dx)*C
+    + c holding x[..., c, 2r + dy, 2s + dx] (the JAX reshape of NHWC
+    (b, h/2, 2, w/2, 2, c) to (b, h/2, w/2, 4c))."""
+    b, c, h, w = x.shape
+    y = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
 class MobileNetV2Backbone(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.s2d_stem:
-            raise NotImplementedError("the port has no space-to-depth stem yet")
         kw = block_kwargs(cfg)
         self.dtype = kw["dtype"]
         self.plan = backbone_plan(cfg)
-        self.stem = ConvBN(3, cfg.width(cfg.stem_channels), kernel=3, stride=2, **kw)
+        self.s2d = cfg.s2d_stem
+        if self.s2d:
+            self.stem = ConvBN(12, cfg.width(cfg.stem_channels), kernel=2, stride=1, padding=((1, 0), (1, 0)), **kw)
+        else:
+            self.stem = ConvBN(3, cfg.width(cfg.stem_channels), kernel=3, stride=2, **kw)
         cin = cfg.width(cfg.stem_channels)
         for i, (t, c, s, _) in enumerate(self.plan):
             self.add_module(f"block_{i}", InvertedResidual(cin, c, s, t, **kw))
             cin = c
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Dict[int, torch.Tensor]:
-        x = self.stem(x.to(self.dtype), train)
+        x = x.to(self.dtype)
+        if self.s2d:
+            x = space_to_depth(x)
+        x = self.stem(x, train)
         feats: Dict[int, torch.Tensor] = {}
         for i, (_, _, _, out_stride) in enumerate(self.plan):
             x = getattr(self, f"block_{i}")(x, train)

@@ -1,6 +1,7 @@
 """Conv+BN+ReLU6 and the MobileNetV2 inverted residual.
 
-Mirrors `tpucenterface/model/blocks.py::ConvBN` and `::InvertedResidual`.
+Mirrors `tpucenterface/model/blocks.py::ConvBN` (with its `padding`
+override and `as_matmul`, the JAX `MatmulConv1x1`) and `::InvertedResidual`.
 Tensors are NCHW in the channels_last memory format (the NHWC bytes of the JAX
 package). Parameters are float32 and are cast to the compute dtype at use,
 like flax's `param_dtype=float32, dtype=compute_dtype`; the Detector stores
@@ -12,7 +13,13 @@ Cast points, as in the JAX package:
 - unfolded ConvBN: conv in the compute dtype, BatchNorm with running
   statistics in float32 (written out as flax computes it), activation, cast;
 - the skip add runs in the compute dtype.
-Padding is the symmetric (k-1)//2 of torch.nn.Conv2d, for stride 2 as well.
+Padding is the symmetric (k-1)//2 of torch.nn.Conv2d, for stride 2 as well,
+unless `padding=((top, bottom), (left, right))` overrides it (the s2d stem's
+((1, 0), (1, 0))): that one is an explicit zero pad ahead of the conv.
+`as_matmul=True` computes a 1x1 / stride-1 / ungrouped conv as a reshape, a
+matrix product in the compute dtype and a reshape, the folded bias added
+after the product (in the compute dtype, as the JAX module adds it); its
+parameters are the conv's, so it loads from the same tree.
 
 The forwards take `train` as the flax modules do. BatchNorm in train mode is
 flax's `nn.BatchNorm(use_running_average=False)` written out in torch ops
@@ -26,7 +33,12 @@ written into the module's buffers: each train-mode forward leaves them in
 `BatchNorm.updated_stats`, and the train step collects them once, after the
 forward that computed them (a recompute under `torch.utils.checkpoint`
 writes the attribute again but is never collected), as flax returns them
-through `mutable=['batch_stats']`.
+through `mutable=['batch_stats']`. A data-parallel train step sets
+`BatchNorm.sync` for its forward and backward: the batch moments are then
+those of the global batch, each rank's per-channel mean of x and x^2
+weighted by its share of the global rows and summed over the ranks by the
+step's reduction, with autograd (SyncBatchNorm's semantics, not DDP's
+per-replica ones).
 """
 
 from __future__ import annotations
@@ -68,13 +80,28 @@ class BatchNorm(nn.Module):
         # (mean, var) of the running statistics after the last train-mode
         # forward, detached; None before one
         self.updated_stats = None
+        # (reduce, share) while a data-parallel train step runs: `reduce`
+        # sums a tensor over the ranks with autograd, `share` is this rank's
+        # rows over the global batch's; None otherwise
+        self.sync = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         x = at_least_f32(x)
         if train:
-            mean = x.mean((0, 2, 3))
-            var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, meansq = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+            if self.sync is not None:
+                # the moments of the global batch: each rank's moments
+                # weighted by its share of the rows (H and W are the same on
+                # every rank), summed over the ranks, as GSPMD reduces the
+                # JAX step's mean over the sharded batch; one rank's share is
+                # exactly 1, so one rank computes the single-device moments
+                # bit for bit
+                reduce, share = self.sync
+                c = mean.shape[0]
+                both = reduce(torch.cat([mean, meansq]) * share)
+                mean, meansq = both[:c], both[c:]
+            var = (meansq - mean * mean).clamp_min(0.0)
             m = self.momentum
             self.updated_stats = (
                 m * self.running_mean + (1 - m) * mean.detach(),
@@ -104,10 +131,19 @@ class ConvBN(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         folded: bool = False,
         bn_dtype: torch.dtype = torch.float32,
+        padding=None,
+        as_matmul: bool = False,
     ):
         super().__init__()
         self.stride = stride
         self.padding = (kernel - 1) // 2
+        # F.pad's (left, right, top, bottom) of a ((top, bottom), (left,
+        # right)) override, or None
+        self.pad = None
+        if padding is not None:
+            (top, bottom), (left, right) = padding
+            self.padding, self.pad = 0, (left, right, top, bottom)
+        self.as_matmul = as_matmul and kernel == 1 and stride == 1 and groups == 1
         self.groups = groups
         self.act = act
         self.relu6 = relu6
@@ -123,7 +159,16 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         w = self.conv.weight.to(self.dtype)
         b = self.conv.bias.to(self.dtype) if self.folded else None
-        x = F.conv2d(x, w, b, self.stride, self.padding, 1, self.groups)
+        if self.as_matmul:
+            n, c, h, wd = x.shape
+            y = torch.matmul(x.permute(0, 2, 3, 1).reshape(n * h * wd, c).to(self.dtype), w[:, :, 0, 0].t())
+            if b is not None:
+                y = y + b
+            x = y.reshape(n, h, wd, -1).permute(0, 3, 1, 2)
+        else:
+            if self.pad is not None:
+                x = F.pad(x, self.pad)
+            x = F.conv2d(x, w, b, self.stride, self.padding, 1, self.groups)
         if not self.folded:
             x = self.bn(x.to(self.bn_dtype), train)
         if self.act:

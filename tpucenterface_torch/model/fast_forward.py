@@ -67,6 +67,10 @@ class FastEngine:
     ):
         if not cfg.folded:
             raise ValueError("FastEngine takes a folded model (ModelConfig.folded)")
+        if cfg.s2d_stem:
+            # the engine calls the stem on its NHWC input as it comes; the
+            # Detector runs an s2d model on the module forward
+            raise ValueError("FastEngine runs the 3x3 stem, not the space-to-depth stem (ModelConfig.s2d_stem)")
         if use_mbconv_kernel and cfg.compute_dtype != "bfloat16":
             raise ValueError(f"the fused kernel computes in bfloat16, not {cfg.compute_dtype}")
         self.cfg = cfg

@@ -80,6 +80,10 @@ class PlanarEngine:
     ):
         if not cfg.folded:
             raise ValueError("PlanarEngine takes a folded model (ModelConfig.folded)")
+        if cfg.s2d_stem:
+            # the engine calls the stem on its NHWC input as it comes; the
+            # Detector runs an s2d model on the module forward
+            raise ValueError("PlanarEngine runs the 3x3 stem, not the space-to-depth stem (ModelConfig.s2d_stem)")
         if max_chain_res > 0 and cfg.compute_dtype != "bfloat16":
             raise ValueError(f"the planar chain kernel computes in bfloat16, not {cfg.compute_dtype}")
         self.cfg = cfg

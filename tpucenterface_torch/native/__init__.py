@@ -3,9 +3,9 @@ while a launch buffer is assembled, and the eval path's IoU matrix and
 greedy NMS.
 
 Mirrors `tpucenterface/native/__init__.py` (`stem_lut_apply`,
-`bbox_overlaps`, `nms`, `available` and their builds) on the port's own
-copies of `stage_ext.cpp` and `nms_ext.cpp`. Each library is compiled at
-first use with
+`bbox_overlaps`, `nms`, `available`, `stage_available` and their builds) on
+the port's own copies of `stage_ext.cpp` and `nms_ext.cpp`. Each library is
+compiled at first use with
 
     g++ -O3 -shared -fPIC <source>.cpp -lpthread
 
@@ -13,7 +13,8 @@ into `build/native/` at the repository root (ignored by git), named by a hash
 of the source, the flags, the compiler's version and the host, so a library
 built on one machine is never loaded on another; the build writes a
 per-process temporary and renames it into place. A failed build or load
-raises: nothing falls back to a numpy loop (`quant.engine.apply_stem_lut`,
+raises (`available` and `stage_available` answer False instead): nothing
+falls back to a numpy loop (`quant.engine.apply_stem_lut`,
 `eval.wider_eval.bbox_overlaps_plain` and `eval.tta.nms_plain` stay the plain
 versions the tests hold these kernels to).
 """
@@ -114,6 +115,17 @@ def available() -> bool:
     """Whether the eval library builds and loads here."""
     try:
         load_nms()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
+def stage_available() -> bool:
+    """Whether the staging library builds and loads here. As the JAX
+    function does, it answers False where the build or load fails;
+    `stem_lut_apply` raises on the same failure."""
+    try:
+        load()
     except (OSError, RuntimeError, subprocess.SubprocessError):
         return False
     return True

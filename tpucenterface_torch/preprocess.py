@@ -13,7 +13,12 @@ operands that hold `resize_dtype` values; the float32 product of two bfloat16
 values is exact, so only the sums' order differs from XLA's. (Float32 matrix
 products on the GPU run in full float32 unless TF32 is enabled for them.)
 
-The `scale_and_translate` resize (`resize_impl != "matmul"`) is not ported.
+Any other `resize_impl` takes the JAX package's `scale_and_translate`
+letterbox (`_scale_translate_weights`): per image and axis, the weight
+matrix `jax.image.scale_and_translate` builds with `method` and no
+antialias, applied as two float32 products; its output stays float32, as
+there. The padded sides take part: the zero pad beyond the content enters
+the border taps, as in JAX.
 """
 
 from __future__ import annotations
@@ -105,7 +110,9 @@ def letterbox_normalize_matmul(
     s, pad_x, pad_y = _letterbox_params(hws, size, cfg)
     wy = _bilinear_rows(hp, size, pad_y, s, dtype).float()
     wx = _bilinear_rows(wp, size, pad_x, s, dtype).float()
-    x = imgs_u8.float()  # uint8 values are exact in every resize_dtype
+    # uint8 values are exact in every resize_dtype: only other input takes
+    # the cast to it that JAX's letterbox makes
+    x = imgs_u8.float() if imgs_u8.dtype == torch.uint8 else imgs_u8.to(dtype).float()
     if cfg.bgr_input and not raw:
         x = x.flip(-1)
     # rows: (B, S, Hp) @ (B, Hp, Wp*3) -> (B, S, Wp*3), rounded once
@@ -137,6 +144,94 @@ def normalize_images(
     return ((x - mean) / std).to(dtype)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return (1.0 - x.abs()).clamp_min(0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel, a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _lanczos(radius: float, x: torch.Tensor) -> torch.Tensor:
+    # each sine of its float32 argument rounded once from float64
+    px = np.pi * x
+    y = radius * torch.sin(px.double()).float() * torch.sin((px / radius).double()).float()
+    den = torch.where(x != 0, np.pi ** 2 * x ** 2, torch.ones_like(x))
+    out = torch.where(x > 1e-3, y / den, torch.ones_like(x))
+    return torch.where(x > radius, torch.zeros_like(x), out)
+
+
+def _resize_kernel(method: str):
+    """The kernel `jax.image.scale_and_translate` takes for `method`."""
+    if method == "nearest":
+        raise ValueError("Nearest neighbor resampling is not currently supported for scale_and_translate.")
+    if method in ("linear", "bilinear", "trilinear", "triangle"):
+        return _triangle
+    if method in ("cubic", "bicubic", "tricubic"):
+        return _keys_cubic
+    if method == "lanczos3":
+        return functools.partial(_lanczos, 3.0)
+    if method == "lanczos5":
+        return functools.partial(_lanczos, 5.0)
+    raise ValueError(f'Unknown resize method "{method}"')
+
+
+def _scale_translate_weights(
+    in_size: int, out_size: int, scale: torch.Tensor, translation: torch.Tensor, method: str
+) -> torch.Tensor:
+    """(B, in_size, out_size) float32 weights of one axis for per-image
+    `scale` and `translation` (B,): `jax._src.image.scale.compute_weight_mat`
+    with antialias off (kernel scale 1). Output pixel o samples input
+    coordinate (o + 0.5) / s - t / s - 0.5; each column is normalized by its
+    sum where that sum exceeds 1000 float32 eps (0 elsewhere) and zeroed
+    where the sample lies outside [-0.5, in_size - 0.5]."""
+    kernel = _resize_kernel(method)
+    dev = scale.device
+    inv = torch.full_like(scale, 1.0) / scale
+    o = torch.arange(out_size, dtype=torch.float32, device=dev)
+    i = torch.arange(in_size, dtype=torch.float32, device=dev)
+    sample = (o[None, :] + 0.5) * inv[:, None] - (translation * inv)[:, None] - 0.5  # (B, out)
+    w = kernel((sample[:, None, :] - i[None, :, None]).abs())  # (B, in, out)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
+
+
+def letterbox_normalize_scale_translate(
+    imgs_u8: torch.Tensor,
+    hws: torch.Tensor,
+    size: int,
+    cfg: PreprocessConfig,
+    raw: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The `scale_and_translate` letterbox of `tpucenterface/preprocess.py::
+    letterbox_normalize` (vmapped over the batch there): imgs (B, Hp, Wp, 3),
+    hws (B, 2) -> (x (B, S, S, 3) float32, scales (B,), pads (B, 2)). Input
+    pixel i maps to output i * s + pad; samples outside the padded image
+    are 0. Then the BGR flip and (x / 255 - mean) / std, or the raw offset."""
+    _, hp, wp, _ = imgs_u8.shape
+    s, pad_x, pad_y = _letterbox_params(hws, size, cfg)
+    wy = _scale_translate_weights(hp, size, s, pad_y, cfg.method)
+    wx = _scale_translate_weights(wp, size, s, pad_x, cfg.method)
+    x = imgs_u8.float()
+    if cfg.bgr_input and not raw:
+        x = x.flip(-1)
+    x = torch.einsum("bwt,bhwc->bhtc", wx, x)
+    x = torch.einsum("bhs,bhtc->bstc", wy, x)
+    if raw:
+        x = x - _raw_offset(cfg, x.device)
+    else:
+        mean = _device_constant(tuple(cfg.mean), x.device)
+        std = _device_constant(tuple(cfg.std), x.device)
+        x = (x / 255.0 - mean) / std
+    return x.contiguous(), s, torch.stack([pad_x, pad_y], dim=-1)
+
+
 def letterbox_normalize(
     img_u8: torch.Tensor,
     hw: torch.Tensor,
@@ -156,9 +251,9 @@ def letterbox_normalize_batch(
     cfg: PreprocessConfig,
     raw: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched letterbox of same-padded-shape images (B, Hp, Wp, 3)."""
-    if cfg.resize_impl != "matmul":
-        raise NotImplementedError(
-            f"resize_impl={cfg.resize_impl!r}: the port has only the matmul letterbox"
-        )
-    return letterbox_normalize_matmul(imgs_u8, hws, size, cfg, raw=raw)
+    """Batched letterbox of same-padded-shape images (B, Hp, Wp, 3): the
+    matmul letterbox, or `scale_and_translate`'s where `resize_impl` names
+    another."""
+    if cfg.resize_impl == "matmul":
+        return letterbox_normalize_matmul(imgs_u8, hws, size, cfg, raw=raw)
+    return letterbox_normalize_scale_translate(imgs_u8, hws, size, cfg, raw=raw)

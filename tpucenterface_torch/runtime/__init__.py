@@ -1,11 +1,10 @@
-"""Runtime: host -> device prefetch, dynamic-batching serving, video
-streaming and profiling.
+"""Runtime: data-parallel sharding over torch.distributed, host -> device
+prefetch, dynamic-batching serving, video streaming and profiling.
 
-Mirrors `tpucenterface/runtime/` but for `sharding.py` (`data_mesh`,
-`shard_batch_fn`): data-parallel serving and the multi-host input feed come
-with the torch.distributed port (ROADMAP.md, A9).
+Mirrors `tpucenterface/runtime/`.
 """
 
 from tpucenterface_torch.runtime.prefetch import prefetch_to_device
+from tpucenterface_torch.runtime.sharding import data_mesh, shard_batch_fn
 
-__all__ = ["prefetch_to_device"]
+__all__ = ["data_mesh", "shard_batch_fn", "prefetch_to_device"]

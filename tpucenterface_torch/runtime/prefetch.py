@@ -8,8 +8,10 @@ transfers in flight. The pinned buffers come from PyTorch's caching host
 allocator, which reuses a buffer only after the copy that read it has
 completed.
 
-Not ported: `sharding=`, the multi-host input feed, which comes with the
-torch.distributed port of the data and training slice (ROADMAP.md, A9).
+With `sharding=` (a `runtime.sharding.Sharding`, as `batch_sharding(mesh)`
+gives it) the iterator yields the global batch on every process, and each
+leaf goes on the mesh as `Sharding.put` puts it: this process's rows
+(`process_local_batch_bounds`) split over its devices, a `ShardedTensor`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from tpucenterface_torch.config import resolve_device
+from tpucenterface_torch.runtime.sharding import Sharding
 
 
 def _tree_map(fn, item):
@@ -40,17 +43,17 @@ def prefetch_to_device(
     """Yield device-resident trees (dicts, lists and tuples of numpy arrays
     or tensors), keeping `size` transfers in flight. `device`: the GPU
     unless it names another; on a CUDA device each leaf is pinned and copied
-    with `non_blocking=True`, elsewhere copied as it is."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=) is not ported yet: the multi-host input feed comes with the "
-            "torch.distributed port of the data and training slice (ROADMAP.md, A9)"
-        )
+    with `non_blocking=True`, elsewhere copied as it is. `sharding` puts
+    each leaf on a mesh instead (`device` is then not read)."""
+    if sharding is not None and not isinstance(sharding, Sharding):
+        raise TypeError(f"sharding must be a runtime.sharding.Sharding (batch_sharding(mesh)), got {sharding!r}")
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if sharding is None else None
 
     def put(x):
+        if sharding is not None:
+            return sharding.put(x)
         t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
         if dev.type == "cuda":
             return t.pin_memory().to(dev, non_blocking=True)

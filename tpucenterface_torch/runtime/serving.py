@@ -3,8 +3,10 @@ device batches.
 
 Mirrors `tpucenterface/runtime/serving.py` (`_resolve`, `_Request`,
 `ServingEngine`, `ServingRouter`) with the same arguments, defaults,
-validation, messages and semantics, but for `mesh=` (data-parallel serving
-over several devices), which is not ported: it raises NotImplementedError.
+validation, messages and semantics. With `mesh=` (a `runtime.sharding.Mesh`)
+each launch runs data-parallel over this process's devices of the mesh
+(`shard_batch_fn`), with launch sizes that divide over the mesh's `size`, as
+in JAX; each process serves the requests submitted to it.
 
 A detector's batch program costs less an image at a large batch than at a
 small one, so the engine admits requests of any batch size, coalesces them
@@ -44,11 +46,12 @@ import numpy as np
 from tpucenterface_torch import native
 from tpucenterface_torch.detector import Detections, Detector, stage_inputs
 from tpucenterface_torch.preprocess import pad_to_bucket
+from tpucenterface_torch.runtime.sharding import Mesh, put_sharded, shard_batch_fn
 
-_MESH_NOT_PORTED = (
-    "data-parallel serving (mesh=) is not ported yet: it comes with the torch.distributed port of "
-    "the data and training slice (ROADMAP.md, A9)"
-)
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a runtime.sharding.Mesh (data_mesh()), got {mesh!r}")
 
 
 def _resolve(fut: Future, result=None, exc=None) -> None:
@@ -117,8 +120,14 @@ class ServingEngine:
         program, which skips the device's input quantize. Its input takes
         the pageable copy, as in the JAX package. Letterbox (non-identity)
         launches fall back to the uint8 program.
-      mesh: not ported (NotImplementedError): data-parallel serving comes
-        with the torch.distributed port.
+      mesh: optional 1-D 'data' `runtime.sharding.Mesh`: launches run
+        data-parallel over this process's devices of it, each device on its
+        rows of the launch (`shard_batch_fn`; a device other than the
+        detector's runs a `Detector.replica`, both keyed on
+        `weights_version`, so a swap never serves old weights). device_batch
+        and every ladder rung must divide over the mesh's size, the default
+        small rung and a request larger than device_batch are rounded up to
+        it. DP launches stage plainly (`put_sharded`).
     """
 
     def __init__(
@@ -135,24 +144,28 @@ class ServingEngine:
         int8_input: bool = False,
         staging: str = "formatted",
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+        _check_mesh(mesh)
         if device_batch < 1:
             raise ValueError("device_batch must be >= 1")
         if staging not in ("formatted", "plain"):
             raise ValueError(f"staging must be 'formatted' or 'plain', got {staging!r}")
         self.staging = staging
-        self.mesh = None
+        self.mesh = mesh
+        self._nd = 1 if mesh is None else mesh.size
+        if device_batch % self._nd:
+            raise ValueError(f"device_batch {device_batch} must divide over the {self._nd}-device mesh")
         if batch_ladder is None:
             # low-load latency rung: a single small request pays for ~1/4 of
             # the device_batch program instead of all of it
-            ladder = {max(1, device_batch // 4), device_batch}
+            small = -(-max(1, device_batch // 4) // self._nd) * self._nd
+            ladder = {small, device_batch}
         else:
             ladder = set(int(b) for b in batch_ladder)
             if max(ladder) != device_batch:
                 raise ValueError(f"batch_ladder max {max(ladder)} must equal device_batch {device_batch}")
-            if any(b < 1 for b in ladder):
-                raise ValueError(f"every ladder rung must be >=1 and divide over the 1-device mesh: {sorted(ladder)}")
+            if any(b < 1 or b % self._nd for b in ladder):
+                raise ValueError(
+                    f"every ladder rung must be >=1 and divide over the {self._nd}-device mesh: {sorted(ladder)}")
         self.batch_ladder = tuple(sorted(ladder))
         self.int8_input = bool(int8_input)
         if self.int8_input and not (
@@ -168,6 +181,9 @@ class ServingEngine:
                 "PreprocessConfig.identity_fast_path enabled; this detector can never take the int8 staging path"
             )
         self.max_dets = max_dets
+        # data-parallel programs and replicas by (..., weights_version)
+        self._dp_cache: dict = {}
+        self._replicas: dict = {}
         self.det = detector
         self.padded_hw = tuple(padded_hw)
         self.device_batch = device_batch
@@ -198,6 +214,8 @@ class ServingEngine:
 
     def _fn(self, batch: int, identity: bool = False, int8_in: bool = False):
         """-> (program, staging format or None) for one launch size."""
+        if self.mesh is not None:
+            return self._dp_fn(batch, identity, int8_in), None
         if self.staging == "plain":
             fn = self.det._batch_fn(
                 batch, self.padded_hw, self.size, identity=identity, max_dets=self.max_dets, int8_in=int8_in,
@@ -207,6 +225,35 @@ class ServingEngine:
             batch, self.padded_hw, self.size, identity=identity, max_dets=self.max_dets, int8_in=int8_in,
             slots=self.inflight + 1,
         )
+
+    def _dp_fn(self, batch: int, identity: bool, int8_in: bool):
+        """The data-parallel program of a launch size: each local device of
+        the mesh runs the batch program on its rows, the detector's own on
+        its device and a replica's on another. Cached by weights_version,
+        entries of older versions dropped on a miss, so a swap never serves
+        old weights and rolling reloads do not pile up programs."""
+        ver = self.det.weights_version
+        key = (batch, identity, int8_in, ver)
+        wrapped = self._dp_cache.get(key)
+        if wrapped is None:
+            for k in [k for k in self._dp_cache if k[3] != ver]:
+                del self._dp_cache[k]
+            for k in [k for k in self._replicas if k[1] != ver]:
+                del self._replicas[k]
+            local = self.mesh.local()
+            per = batch // len(local.devices)
+            progs = {}
+            for dev in local.devices:
+                if dev in progs:
+                    continue
+                det = self.det
+                if dev != det.device:
+                    det = self._replicas.get((dev, ver)) or self._replicas.setdefault((dev, ver), det.replica(dev))
+                progs[dev] = det._batch_fn(per, self.padded_hw, self.size, identity=identity,
+                                           max_dets=self.max_dets, int8_in=int8_in)
+            wrapped = shard_batch_fn(None, local, num_batch_args=2, program_for=progs.__getitem__)
+            self._dp_cache[key] = wrapped
+        return wrapped
 
     def _launch(self, group: Sequence[_Request]) -> Tuple[Sequence[_Request], Any]:
         """Enqueue ONE program for the group; no host sync.
@@ -225,11 +272,12 @@ class ServingEngine:
         total = sum(r.n for r in group)
         # pad the coalesced batch up to the smallest ladder rung that fits,
         # so ragged tails and low-load singles ride a bounded program set;
-        # a single request larger than device_batch runs at its own size
+        # a single request larger than device_batch runs at its own size,
+        # rounded up to the mesh size under DP
         if total <= self.device_batch:
             b = min(r for r in self.batch_ladder if r >= total)
         else:
-            b = total
+            b = -(-total // self._nd) * self._nd
         # pre-sized fast path: if every real image in the group is exactly
         # the model size, the whole launch can use the identity program, and
         # pad rows then carry hw=size so that one program fits
@@ -251,7 +299,6 @@ class ServingEngine:
                 native.stem_lut_apply(r.images, lut, out=imgs[o : o + r.n])
                 hws[o : o + r.n] = r.hws
                 o += r.n
-            dev_im, dev_hw = stage_inputs(fmt, imgs, hws, self.det.device)
         elif fmt is not None:
             # assembled straight into the signature's next pinned slot
             fill = self.size if identity else 1
@@ -268,7 +315,7 @@ class ServingEngine:
             dev_im, dev_hw = fmt.stage(assemble)
         elif len(group) == 1 and group[0].n == b:
             # the request already spans the launch: no assembly copy
-            dev_im, dev_hw = stage_inputs(None, group[0].images, group[0].hws, self.det.device)
+            imgs, hws = group[0].images, group[0].hws
         else:
             imgs = np.zeros((b, *self.padded_hw, 3), np.uint8)
             fill = self.size if identity else 1
@@ -278,7 +325,12 @@ class ServingEngine:
                 imgs[o : o + r.n] = r.images
                 hws[o : o + r.n] = r.hws
                 o += r.n
-            dev_im, dev_hw = stage_inputs(None, imgs, hws, self.det.device)
+        if fmt is None:
+            if self.mesh is not None:
+                local = self.mesh.local()
+                dev_im, dev_hw = put_sharded(imgs, local), put_sharded(np.asarray(hws, np.int32), local)
+            else:
+                dev_im, dev_hw = stage_inputs(None, imgs, hws, self.det.device)
         res = fn(dev_im, dev_hw)
         # counted only once the launch succeeded: a build or staging error
         # above must not inflate launches/pad_images
@@ -523,11 +575,10 @@ class ServingRouter:
     routed to a per-bucket ServingEngine, which coalesces same-bucket
     requests into large device batches. A mixed-shape stream therefore
     costs one program per active bucket instead of one per distinct shape.
-    `mesh=` is not ported (NotImplementedError)."""
+    `mesh=` passes through to every engine."""
 
     def __init__(self, detector: Detector, device_batch: int = 128, **kw):
-        if kw.get("mesh") is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+        _check_mesh(kw.get("mesh"))
         self.det = detector
         self.device_batch = device_batch
         self.kw = kw

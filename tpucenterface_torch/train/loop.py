@@ -1,7 +1,7 @@
 """Training loop with checkpoints, resume, exports and metrics logging.
 
 Mirrors `tpucenterface/train/loop.py` (`save_checkpoint`,
-`restore_checkpoint`, `export_weights`, `train`) on one device:
+`restore_checkpoint`, `export_weights`, `train`):
 - checkpoints are directories `ckpt_{step:07d}` under `workdir`, each holding
   one safetensors file of the whole state (params, batch_stats, Adam's count
   and moments, the step, the EMA) written and read with numpy
@@ -35,7 +35,14 @@ import torch
 from tpucenterface_torch.config import ModelConfig, PreprocessConfig, TrainConfig, resolve_device
 from tpucenterface_torch.data.loader import batch_iterator
 from tpucenterface_torch.runtime.prefetch import prefetch_to_device
-from tpucenterface_torch.train.step import TrainState, make_train_state, make_train_step
+from tpucenterface_torch.runtime.sharding import batch_sharding, data_mesh
+from tpucenterface_torch.train.step import (
+    TrainState,
+    data_parallel_step,
+    make_train_state,
+    make_train_step,
+    replicate_state,
+)
 from tpucenterface_torch.weights.io import flatten, read_safetensors_flat, save_safetensors, unflatten
 
 STATE_FILE = "state.safetensors"
@@ -150,14 +157,24 @@ def train(
     loader_workers: int = 0,
     device=None,
 ) -> TrainState:
-    """Run (or resume) training over WIDER records on `device` (the GPU
-    unless it names another); returns the final state. The data pipeline
-    decodes and warps with `cv2`."""
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            "train(n_devices=) is not ported: data-parallel training over several cards comes with "
-            "torch.distributed (ROADMAP.md)")
-    dev = resolve_device(device)
+    """Run (or resume) training over WIDER records; returns the final state.
+    The data pipeline decodes and warps with `cv2`.
+
+    Data-parallel as the JAX loop is: the step runs over a 'data' mesh
+    (`runtime.sharding.data_mesh(n_devices)`) through `train.step`'s
+    `replicate_state` and `data_parallel_step` (`shard_train_step`),
+    and every process iterates the global batches of `seed` and feeds its
+    own rows (`prefetch_to_device(sharding=)`). One process a device: start
+    one process per card and join them first
+    (`runtime.sharding.maybe_init_distributed`, the TPUCF_* variables); rank
+    0 writes the checkpoints and exports. Without a process group the mesh
+    is `device` (the GPU unless it names another) and the step is the
+    single-device one; `n_devices` beyond this process's devices raises."""
+    grouped = torch.distributed.is_initialized()
+    own = device is not None or (n_devices is None and not grouped)
+    mesh = data_mesh(n_devices, devices=[resolve_device(device)] if own else None)
+    writer = mesh.rank == 0
+    dev = mesh.devices[0]
     os.makedirs(workdir, exist_ok=True)
     steps_per_epoch = max(1, len(records) // train_cfg.batch_size)
     model, state, tx = make_train_state(
@@ -169,26 +186,29 @@ def train(
             state = restored
             restored_step = int(state.step)
 
-    steps = {False: make_train_step(model, tx, train_cfg, pre_cfg)}
+    state = replicate_state(state, mesh)
+    steps = {False: data_parallel_step(make_train_step(model, tx, train_cfg, pre_cfg), mesh)}
 
     def step_for(step_idx: int):
         # FrozenBN: past the boundary BatchNorm normalizes with the running
         # averages, as inference will, and the statistics stop updating
         frozen = 0 < train_cfg.freeze_bn_steps <= step_idx
         if frozen not in steps:
-            steps[frozen] = make_train_step(model, tx, train_cfg, pre_cfg, frozen_bn=True)
+            steps[frozen] = data_parallel_step(make_train_step(model, tx, train_cfg, pre_cfg, frozen_bn=True), mesh)
         return steps[frozen]
 
     total_steps = max_steps or steps_per_epoch * train_cfg.epochs
     batches = batch_iterator(records, train_cfg, seed=seed, wh_log=wh_log, workers=loader_workers)
     state, step, last_ckpt_step = run_steps(
-        step_for, state, prefetch_to_device(batches, size=2, device=dev), int(state.step), total_steps,
-        train_cfg.batch_size, log_every=log_every, log_fn=log_fn, ckpt_every=ckpt_every, workdir=workdir,
+        step_for, state, prefetch_to_device(batches, size=2, sharding=batch_sharding(mesh)), int(state.step),
+        total_steps, train_cfg.batch_size, log_every=log_every, log_fn=log_fn,
+        ckpt_every=ckpt_every if writer else 0, workdir=workdir,
         # the restored checkpoint is on disk already
         last_ckpt_step=restored_step)
-    if step != last_ckpt_step:
-        # a final save, unless the last periodic save (or the restored
-        # checkpoint) holds this very step
-        save_checkpoint(workdir, state)
-    export_weights(workdir, state)
+    if writer:
+        if step != last_ckpt_step:
+            # a final save, unless the last periodic save (or the restored
+            # checkpoint) holds this very step
+            save_checkpoint(workdir, state)
+        export_weights(workdir, state)
     return state

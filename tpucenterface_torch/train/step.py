@@ -1,7 +1,9 @@
 """The train step and its state.
 
 Mirrors `tpucenterface/train/step.py` (`TrainState`, `make_optimizer`,
-`make_train_state`, `make_train_step`, `make_dummy_batch`). The step is a pure
+`make_train_state`, `make_train_step`, `shard_train_step`,
+`make_dummy_batch`; `shard_train_step` is `replicate_state` and
+`data_parallel_step`). The step is a pure
 function (state, batch) -> (new state, metrics), as the JAX one is: it
 allocates the new state and leaves its input as it was.
 
@@ -41,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from tpucenterface_torch.config import ModelConfig, PreprocessConfig, TrainConfig, resolve_device
 from tpucenterface_torch.model.blocks import BatchNorm
 from tpucenterface_torch.model.centernet import CenterFaceNet, init_model
+from tpucenterface_torch.runtime.sharding import Mesh, ShardedTensor, global_sum, sum_over_ranks
 from tpucenterface_torch.train.losses import detection_loss
 from tpucenterface_torch.weights.convert import torch_key
 
@@ -232,7 +235,15 @@ def make_loss_fn(
     otherwise BatchNorm takes batch statistics and the new running ones come
     back. `train_cfg.remat` wraps the forward in
     `torch.utils.checkpoint(use_reentrant=False)`, as `jax.checkpoint` wraps
-    the JAX step's `_apply`."""
+    the JAX step's `_apply`.
+
+    `reduce` (a sum over the ranks, with autograd) and `share` (this rank's
+    rows over the global batch's, a device tensor) make it one rank's of a
+    data-parallel step (`shard_train_step`): BatchNorm's moments and the
+    loss normalizers are then the global batch's, so the loss is this rank's
+    share of the global one. BatchNorm takes them through `BatchNorm.sync`
+    for the forward and the backward (a recompute under remat included)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def normalize(img: torch.Tensor) -> torch.Tensor:
@@ -252,17 +263,25 @@ def make_loss_fn(
             model, _module_tensors(params, batch_stats), (x,), {"train": not frozen_bn})
         return out, (batch_stats if frozen_bn else _collect_stats(model))
 
-    def loss_and_grads(params: Tree, batch_stats: Tree, batch: Dict[str, torch.Tensor]):
+    def loss_and_grads(params: Tree, batch_stats: Tree, batch: Dict[str, torch.Tensor],
+                       reduce: Optional[Callable] = None, share: Optional[torch.Tensor] = None):
         paths, leaves = _unzip(params)
         leaves = [x.detach().requires_grad_() for x in leaves]
-        with torch.enable_grad():
-            x = normalize(batch["image"])
-            if train_cfg.remat:
-                outputs, new_stats = checkpoint(apply, tree_build(paths, leaves), batch_stats, x, use_reentrant=False)
-            else:
-                outputs, new_stats = apply(tree_build(paths, leaves), batch_stats, x)
-            total, metrics = detection_loss(outputs, batch, train_cfg)
-            grads = torch.autograd.grad(total, leaves)
+        for m in bns:
+            m.sync = None if reduce is None else (reduce, share)
+        try:
+            with torch.enable_grad():
+                x = normalize(batch["image"])
+                if train_cfg.remat:
+                    outputs, new_stats = checkpoint(
+                        apply, tree_build(paths, leaves), batch_stats, x, use_reentrant=False)
+                else:
+                    outputs, new_stats = apply(tree_build(paths, leaves), batch_stats, x)
+                total, metrics = detection_loss(outputs, batch, train_cfg, reduce)
+                grads = torch.autograd.grad(total, leaves)
+        finally:
+            for m in bns:
+                m.sync = None
         # a kernel's gradient comes back as a permuted view of the OIHW one
         grads = [g.contiguous() for g in grads]
         return tree_build(paths, grads), {k: v.detach() for k, v in metrics.items()}, new_stats
@@ -278,14 +297,26 @@ def make_train_step(
     frozen_bn: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The (state, batch) -> (state, metrics) step (see `make_loss_fn` for
-    the batch and `frozen_bn`). The EMA, ema*d + params*(1-d) with d the
-    float32 decay, is computed inside the step from the new params."""
+    the batch, `frozen_bn`, and the `reduce` and `share` of one rank's step
+    of a data-parallel one, whose gradients and metrics it sums over the
+    ranks). The EMA, ema*d + params*(1-d) with d the float32 decay, is
+    computed inside the step from the new params."""
     loss_and_grads = make_loss_fn(model, train_cfg, pre_cfg, frozen_bn)
     decay = train_cfg.ema_decay
 
     @torch.no_grad()
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        grads, metrics, new_stats = loss_and_grads(state.params, state.batch_stats, batch)
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   reduce: Optional[Callable] = None, share: Optional[torch.Tensor] = None):
+        grads, metrics, new_stats = loss_and_grads(state.params, state.batch_stats, batch, reduce, share)
+        if reduce is not None:
+            # each rank's loss is its share of the global batch's (the
+            # normalizers are global), so the shares' gradients and metrics
+            # sum to the global step's; averaging would divide them again
+            gpaths, g = _unzip(grads)
+            names = sorted(metrics)
+            summed = sum_over_ranks(g + [metrics[k] for k in names])
+            grads = tree_build(gpaths, summed[: len(g)])
+            metrics = dict(zip(names, summed[len(g):]))
         updates, new_opt = tx.update(grads, state.opt_state, state.params)
         paths, params = _unzip(state.params)
         new_p = torch._foreach_add(params, _unzip(updates)[1])
@@ -303,6 +334,81 @@ def make_train_step(
         ), metrics
 
     return train_step
+
+
+def state_to(state: TrainState, device) -> TrainState:
+    """A copy of `state` with every tensor on `device`."""
+    dev = torch.device(device)
+
+    def put(tree):
+        return None if tree is None else tree_map(lambda t: t.to(dev, copy=True), tree)
+
+    return TrainState(params=put(state.params), batch_stats=put(state.batch_stats), opt_state=put(state.opt_state),
+                      step=state.step.to(dev, copy=True), ema_params=put(state.ema_params))
+
+
+def _mesh_device(mesh: Mesh) -> torch.device:
+    if len(mesh.devices) != 1:
+        raise ValueError(
+            f"data-parallel training runs one process per device, and this process holds {len(mesh.devices)} "
+            "devices of the mesh: start one process per device (runtime.sharding.maybe_init_distributed, the "
+            "TPUCF_* variables)")
+    return mesh.devices[0]
+
+
+def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """A copy of `state` on the mesh's device; in a process group broadcast
+    from rank 0, so every replica starts equal."""
+    state = state_to(state, _mesh_device(mesh))
+    if torch.distributed.is_initialized():
+        for t in _state_tensors(state):
+            torch.distributed.broadcast(t, src=0)
+    return state
+
+
+def data_parallel_step(train_step, mesh: Mesh):
+    """`train_step` (of `make_train_step`) as one rank's step of the
+    data-parallel step over `mesh`. It takes this process's rows of the
+    global batch (a `ShardedTensor` leaf of `put_sharded` or
+    `prefetch_to_device(sharding=)`, or a tensor) on the mesh's device. In a
+    process group it hands `train_step` `runtime.sharding.global_sum` and
+    this rank's share of the global rows (one all-reduce of the row count a
+    step): the BatchNorm moments and the loss normalizers are those of the
+    global batch, and the gradients and metrics are summed over the ranks,
+    so every rank takes the single-device step on the global batch. Without
+    a group it is `train_step` on the mesh's device.
+
+    One process a device: a mesh with several devices in this process raises
+    (the step has no in-process reduction over devices)."""
+    dev = _mesh_device(mesh)
+
+    def local(x) -> torch.Tensor:
+        if isinstance(x, ShardedTensor):
+            return x.gather(dev)
+        return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(dev)
+
+    def step(state: TrainState, batch: Dict[str, Any]):
+        rows = {k: local(v) for k, v in batch.items()}
+        if not torch.distributed.is_initialized():
+            return train_step(state, rows)
+        n = torch.full((1,), float(rows["image"].shape[0]), dtype=torch.float32, device=dev)
+        total = n.clone()
+        torch.distributed.all_reduce(total)
+        return train_step(state, rows, global_sum, n / total)
+
+    return step
+
+
+def shard_train_step(train_step, mesh: Mesh, state: TrainState):
+    """(`data_parallel_step(train_step, mesh)`, `replicate_state(state,
+    mesh)`): the JAX function's pair of the data-parallel step and the state
+    on the mesh."""
+    return data_parallel_step(train_step, mesh), replicate_state(state, mesh)
+
+
+def _state_tensors(state: TrainState) -> List[torch.Tensor]:
+    trees = [state.params, state.batch_stats, state.opt_state] + ([state.ema_params] if state.ema_params is not None else [])
+    return [t for tree in trees for _, t in tree_paths(tree)] + [state.step]
 
 
 def make_dummy_batch(

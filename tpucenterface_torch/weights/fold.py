@@ -1,9 +1,10 @@
 """BatchNorm folding, head fusion and the stem bake, in numpy.
 
 Mirrors `tpucenterface/weights/fold.py::fold_variables`, `fuse_head_params`,
-`raw_pixel_offset` and `bake_preprocess_into_stem`. The arithmetic is float64
-numpy in the same order as the JAX version and is rounded to float32 once at
-the end, so the folded tree is bit-identical to the JAX package's. Trees stay
+`raw_pixel_offset`, `bake_preprocess_into_stem` and `s2d_remap_stem`. The
+arithmetic is float64 numpy in the same order as the JAX version and is
+rounded to float32 once at the end, so the folded tree is bit-identical to
+the JAX package's. Trees stay
 in the JAX layout (flax key names, HWIO kernels); `weights.convert` carries
 them into the port's modules.
 
@@ -11,8 +12,9 @@ y = BN(conv(x)) with inference statistics is an affine map per output channel:
     scale = gamma / sqrt(var + eps)
     y = conv(x) * scale + (beta - mean * scale)
 
-The space-to-depth stem remap (`s2d_remap_stem`) is not ported: the port's
-model has no s2d stem yet.
+`s2d_remap_stem` (JAX `:106-125`) rewrites the 3x3/stride-2 stem as the
+2x2/stride-1 stem of the space-to-depth model; `fold_variables(s2d_stem=True)`
+applies it after the stem bake, as the JAX version does.
 """
 
 from __future__ import annotations
@@ -75,10 +77,34 @@ def bake_preprocess_into_stem(stem_conv: Dict[str, Any], pp_cfg) -> Dict[str, An
     }
 
 
+def s2d_remap_stem(kernel: np.ndarray) -> np.ndarray:
+    """A 3x3/stride-2 stem kernel (3, 3, C, O) as the equivalent 2x2/stride-1
+    kernel (2, 2, 4C, O) on the 2x space-to-depth input.
+
+    The stem (pad 1, stride 2) computes
+        out[i,j] = sum_{ky,kx} W[ky,kx] * x[2i+ky-1, 2j+kx-1];
+    with x_s2d[r,s,(dy,dx,c)] = x[2r+dy, 2s+dx, c] each tap lands on
+        ky=0 -> (u=0, dy=1), ky=1 -> (u=1, dy=0), ky=2 -> (u=1, dy=1)
+    of a 2x2 conv with pad ((1,0),(1,0)); the (u=0, dy=0) slot is zero.
+    """
+    kh, kw, c, o = np.shape(kernel)
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"s2d stem remap expects a 3x3 kernel, got {np.shape(kernel)}")
+    kernel = np.asarray(kernel)
+    out = np.zeros((2, 2, 4 * c, o), kernel.dtype)
+    for ky in range(3):
+        uy, dy = (0, 1) if ky == 0 else (1, ky - 1)
+        for kx in range(3):
+            ux, dx = (0, 1) if kx == 0 else (1, kx - 1)
+            out[uy, ux, (dy * 2 + dx) * c : (dy * 2 + dx + 1) * c] = kernel[ky, kx]
+    return out
+
+
 def fold_variables(
     variables: Dict[str, Any],
     bn_eps: float = 1e-5,
     fuse_heads: bool = False,
+    s2d_stem: bool = False,
     bake_preprocess=None,
 ) -> Dict[str, Any]:
     """Fold every {conv, bn} sibling pair into a biased conv; drop batch_stats.
@@ -86,7 +112,8 @@ def fold_variables(
     Returns {'params': folded_tree} for a ModelConfig(folded=True) model.
     Head scopes pass through, or are merged into one 'fused' scope with
     fuse_heads=True; bake_preprocess (a PreprocessConfig) bakes the input
-    normalize into the stem.
+    normalize into the stem; s2d_stem remaps the stem for the space-to-depth
+    model, after the bake (which needs the 3-channel stem).
     """
     params = variables["params"]
     stats = variables["batch_stats"]
@@ -119,4 +146,10 @@ def fold_variables(
     if bake_preprocess is not None:
         stem = out["backbone"]["stem"]
         stem["conv"] = bake_preprocess_into_stem(stem["conv"], bake_preprocess)
+    if s2d_stem:
+        stem = out["backbone"]["stem"]
+        stem["conv"] = {
+            "kernel": np.asarray(s2d_remap_stem(stem["conv"]["kernel"]), np.float32),
+            "bias": stem["conv"]["bias"],
+        }
     return {"params": out}

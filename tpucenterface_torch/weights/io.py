@@ -135,8 +135,10 @@ def unflatten(flat: Dict[str, Any], sep: str = "/") -> Dict[str, Any]:
     return tree
 
 
-def load_safetensors(path: str) -> Dict[str, Any]:
-    """Nested {'params': ..., 'batch_stats': ...} tree of numpy arrays."""
+def load_safetensors(path: str, cfg=None) -> Dict[str, Any]:
+    """Nested {'params': ..., 'batch_stats': ...} tree of numpy arrays.
+    `cfg` (a ModelConfig) is taken as the JAX function takes it, which
+    reads nothing from it: the file alone decides the tree."""
     return unflatten(read_safetensors_flat(path))
 
 
