@@ -6,8 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA sources of the paths (`csrc/decode.cu`,
-   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar.cu`, `csrc/planar_chain.cu`,
-   `csrc/int8_conv.cu`, `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with
+   `csrc/mbconv.cu`, `csrc/nms.cu`, `csrc/planar_chain.cu` (the planar
+   chain and the one-block planar kernel), `csrc/int8_conv.cu`,
+   `csrc/int8_block.cu`, `csrc/int8_block_s1.cu`) with
    nvcc into build/kernels/, one nvcc per source, and the host kernels
    (`native/stage_ext.cpp`, `native/nms_ext.cpp`) with g++ into
    build/native/, all started together;
@@ -23,8 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the eval path's flip batches of 128 images at 640, 416 and 512, at
    the serving rungs of 8 and 2 images @ 640 and at the `large` preset's
    blocks; the sigmoid + pseudo-NMS on plateaus across its tile seams and
-   at the serving rungs (8 and 2, 160, 160)); the one-block planar kernel,
-   the int8 1x1 conv and the stride-2 int8 block, which no engine calls,
+   at the serving rungs (8 and 2, 160, 160)); the one-block planar kernel
+   (on the planner's plan, each plan logged), the int8 1x1 conv and the
+   stride-2 int8 block, which no engine calls,
    are held to their plain versions here and timed in phase 5, and are on
    no path. The int8 kernels are integer-exact up to float32 epilogues that
    round as their plain versions do, so they are held to them bit for bit,
@@ -232,6 +234,23 @@ PLANAR_CHAIN_MAX_DIFFERING = 0.5
 # to its plain version and timed besides each chain's first block: the two
 # stride-1 blocks that no chain takes.
 PLANAR_SINGLE_BLOCKS = [(0, 1), (2, 1)]
+# B4a's random cases besides the flagship's blocks (name, B, H, W, Cin,
+# [(Ce, Cout)], the block with b1 = +3, ReLU6): no expand (streamed plans:
+# the input's channels by ldmatrix) on ragged maps; Cin 16 and 12 (a K
+# padding that the kernel zeroes); Cout 320 without a skip and Cout 160 with
+# one (more than 96 output channels in one pass) on ragged maps; a 1x1 map;
+# Ce 144 on a ragged 161-wide map (every chunk resident).
+# tests/test_torch_planar_one.py plans every one of them on the CPU.
+PLANAR_BLOCK_SHAPES = (
+    ("no expand 2x23x37", 2, 23, 37, 32, [(32, 16)], None, True),
+    ("no expand, ragged 2x50x70", 2, 50, 70, 32, [(32, 16)], None, True),
+    ("b1=+3, 2x8x16", 2, 8, 16, 16, [(96, 24)], 0, True),
+    ("odd widths, ReLU, batch 1, 19x33", 1, 19, 33, 12, [(40, 12)], None, False),
+    ("160->960->320, 2x20x20", 2, 20, 20, 160, [(960, 320)], None, True),
+    ("160->960->160 with a skip, ragged 2x21x23", 2, 21, 23, 160, [(960, 160)], None, True),
+    ("1x1 map 32->192->32", 2, 1, 1, 32, [(192, 32)], None, True),
+    ("24->144->24, ragged 2x37x161", 2, 37, 161, 24, [(144, 24)], None, True),
+)
 # The chains the planar engine runs at the Detector's PLANAR_CHAIN_RES, as
 # (first block, number of blocks): three at a 640 input, four at 320.
 PLANAR_CHAINS = {640: [(4, 2), (7, 6), (14, 3)], 320: [(2, 1), (4, 2), (7, 6), (14, 3)]}
@@ -677,7 +696,7 @@ def phase_build():
         load()
         return time.perf_counter() - t0
 
-    names = ("decode", "mbconv", "nms", "planar", "planar_chain", "int8_conv", "int8_block", "int8_block_s1")
+    names = ("decode", "mbconv", "nms", "planar_chain", "int8_conv", "int8_block", "int8_block_s1")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + 2) as pool:
         stage = pool.submit(timed_host, native.load)
@@ -1048,21 +1067,30 @@ def _check_planar_chain(what, x, blocks, h, w, relu6=True):
     return err
 
 
+def _planar_block_plan(x, packed, h, w):
+    """The plan planar_mbconv launches for `x` and one packed block."""
+    from tpucenterface_torch.ops.planar_mbconv import plan_planar_mbconv
+
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return plan_planar_mbconv(packed.shapes[0], x.shape[0], h, w, sms, skip=packed.skips[0])
+
+
 def _check_planar_block(what, x, blk, h, w, relu6=True):
-    """planar_mbconv against its plain version. Returns the error."""
-    from tpucenterface_torch.ops.planar_mbconv import pack_planar_blocks, planar_mbconv, planar_mbconv_plain
+    """planar_mbconv against its plain version, on the planner's plan (the
+    packed block and the six weights both, equal). Returns the error."""
+    from tpucenterface_torch.ops.planar_mbconv import pack_planar_chain, planar_mbconv, planar_mbconv_plain
 
     args = [blk[k] for k in _BLOCK_KEYS]
     got = planar_mbconv(x, *args, H=h, W=w, skip=blk["skip"], relu6=relu6)
     torch.cuda.synchronize()
     want = planar_mbconv_plain(x, *args, H=h, W=w, skip=blk["skip"], relu6=relu6)
     err, differing = _planar_compare(f"planar block {what}", got, want, h, w)
-    packed = pack_planar_blocks([blk], x.shape[1], x.device)
+    packed = pack_planar_chain([blk], x.shape[1], x.device)
     if not torch.equal(planar_mbconv(x, packed, H=h, W=w, relu6=relu6), got):
         raise AssertionError(f"[kernels] planar block {what}: packed and unpacked weights give different results")
     log(f"[kernels] planar block {what}: x {tuple(x.shape)} {h}x{w} {x.shape[1]}->{blk['wd'].shape[-1]}->"
-        f"{blk['w2'].shape[-1]} skip={blk['skip']}: max |err| {err:.3g} (max |out| "
-        f"{want.float().abs().max().item():.3g}), differing {differing:.2e} of values")
+        f"{blk['w2'].shape[-1]} skip={blk['skip']}, plan {_planar_block_plan(x, packed, h, w).describe()}: max |err| "
+        f"{err:.3g} (max |out| {want.float().abs().max().item():.3g}), differing {differing:.2e} of values")
     return err
 
 
@@ -1087,12 +1115,7 @@ def phase_kernels_planar(chains, singles):
     for what, b, h, w, c0, spec, shift, relu6, w2_scale in B4B_KERNEL_SHAPES:
         x, blocks = _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=shift, w2_scale=w2_scale)
         many[what] = _check_planar_chain(what, x, blocks, h, w, relu6=relu6)
-    for what, b, h, w, c0, spec, shift, relu6 in (
-        ("no expand 2x23x37", 2, 23, 37, 32, [(32, 16)], None, True),
-        ("b1=+3, 2x8x16", 2, 8, 16, 16, [(96, 24)], 0, True),
-        ("odd widths, ReLU, batch 1, 19x33", 1, 19, 33, 12, [(40, 12)], None, False),
-        ("160->960->320, 2x20x20", 2, 20, 20, 160, [(960, 320)], None, True),
-    ):
+    for what, b, h, w, c0, spec, shift, relu6 in PLANAR_BLOCK_SHAPES:
         x, blocks = _random_planar_chain(gen, b, h, w, c0, spec, dev, b1_shift_at=shift)
         one[what] = _check_planar_block(what, x, blocks[0], h, w, relu6=relu6)
     return one, many
@@ -3501,13 +3524,13 @@ def times_planar(chains, singles):
     blocks 0 and 2 of a 640 input (`singles`) and at each 640 chain's first
     block, batch 32, beside their bounds, their plain versions and the port's
     `InvertedResidual` modules over the same blocks (cuDNN convolutions). Both
-    wrappers are timed on packed weights; B4a's time includes its wrapper's
-    cast of the float32 result to bfloat16. B4b's totals are those of one
-    bs32@640 forward (three launches), B4a's those of blocks 0 and 2.
+    wrappers are timed on packed weights; B4a's entries carry its planner's
+    plan and its device time (calls back to back). B4b's totals are those of
+    one bs32@640 forward (three launches), B4a's those of blocks 0 and 2.
     Bytes: x and out once (bfloat16) and every weight once."""
     from tpucenterface_torch.ops.planar_mbconv import (
-        nhwc_from_planar, pack_planar_blocks, pack_planar_chain, planar_mbconv, planar_mbconv_chain,
-        planar_mbconv_chain_plain, planar_mbconv_plain,
+        nhwc_from_planar, pack_planar_chain, planar_mbconv, planar_mbconv_chain, planar_mbconv_chain_plain,
+        planar_mbconv_plain,
     )
 
     def run_modules(mods, y):
@@ -3544,13 +3567,15 @@ def times_planar(chains, singles):
                 continue
             blk = blocks[0]
             args = [blk[k] for k in _BLOCK_KEYS]
-            packed_one = pack_planar_blocks(blocks[:1], c0, x.device)
+            packed_one = pack_planar_chain(blocks[:1], c0, x.device)
             cout = blk["w2"].shape[-1]
             bound_ms, bound_by = bound(2 * pos * (c0 + cout) + work[0][0],
                                        [(work[0][1], BF16_TC_OPS_PER_S), (work[0][2], F32_OPS_PER_S)])
             one.append({
                 "block": ch["first"], "input": ch["size"], "x": [b, c0, h, w], "ce": blk["wd"].shape[-1], "cout": cout,
+                "plan": _planar_block_plan(x, packed_one, h, w).describe(),
                 "ms": cuda_ms(lambda: planar_mbconv(x, packed_one, H=h, W=w), iters=20),
+                "device_ms": back_to_back_ms(lambda: planar_mbconv(x, packed_one, H=h, W=w)),
                 "plain_ms": cuda_ms(lambda: planar_mbconv_plain(x, *args, H=h, W=w, skip=blk["skip"]), iters=3, warmup=1),
                 "library_ms": cuda_ms(lambda: ch["modules"][0](y), iters=20),
                 "bound_ms": bound_ms, "bound_by": bound_by, "in_total": single,
@@ -3853,7 +3878,7 @@ def main() -> int:
         "decode_feats_fused": ("tpucenterface_torch/csrc/decode.cu", "tpucenterface/decode/pallas_decode.py:134"),
         "fused_mbconv": ("tpucenterface_torch/csrc/mbconv.cu", "tpucenterface/ops/fused_mbconv.py:150"),
         "sigmoid_pseudo_nms_fused": ("tpucenterface_torch/csrc/nms.cu", "tpucenterface/decode/pallas_nms.py:45"),
-        "planar_mbconv": ("tpucenterface_torch/csrc/planar.cu", "tpucenterface/ops/planar_mbconv.py:151"),
+        "planar_mbconv": ("tpucenterface_torch/csrc/planar_chain.cu", "tpucenterface/ops/planar_mbconv.py:151"),
         "planar_mbconv_chain": ("tpucenterface_torch/csrc/planar_chain.cu", "tpucenterface/ops/planar_mbconv.py:303"),
         "int8_conv1x1": ("tpucenterface_torch/csrc/int8_conv.cu", "tpucenterface/bench/probe_int8_conv.py:36"),
         "int8_block_s2": ("tpucenterface_torch/csrc/int8_block.cu", "tpucenterface/bench/probe_fused_block.py:161"),

@@ -239,7 +239,8 @@ def test_pack_refuses_what_the_kernel_cannot_run():
 
 def test_cpu_wrapper_takes_the_dicts_and_refuses_a_packed_chain():
     """On the CPU the wrapper is the plain chain and counts no launch; a
-    PackedChain (or the one-block kernel's PackedBlocks) is for the kernel."""
+    PackedChain (also one of one block, as the one-block kernel takes it) is
+    for the kernel."""
     rng = np.random.RandomState(5)
     c0, h, w = 12, 5, 9
     blocks = _blocks(rng, c0, [(40, 12), (12, 12), (24, 20)])
@@ -255,4 +256,4 @@ def test_cpu_wrapper_takes_the_dicts_and_refuses_a_packed_chain():
     with pytest.raises(ValueError, match="packed blocks are for the kernel"):
         T.planar_mbconv_chain(x, packed, H=h, W=w)
     with pytest.raises(ValueError, match="packed blocks are for the kernel"):
-        T.planar_mbconv_chain(x, T.pack_planar_blocks(blocks, c0, "cpu"), H=h, W=w)
+        T.planar_mbconv_chain(x, T.pack_planar_chain(blocks[:1], c0, "cpu"), H=h, W=w)

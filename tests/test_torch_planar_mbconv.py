@@ -1,7 +1,7 @@
 """The port's planar MBConv functions against the JAX package's.
 
 `planar_mbconv_plain` and `planar_mbconv_chain_plain` (the plain versions the
-CUDA kernels of `csrc/planar.cu` are held against on the card) are compared
+CUDA kernels of `csrc/planar_chain.cu` are held against on the card) are compared
 with the Pallas kernels `planar_mbconv` and `planar_mbconv_chain` in interpret
 mode, as tests/test_planar_mbconv.py runs them. Inputs come from numpy with a
 seed; pad columns of the input hold garbage. Only real columns are compared:
@@ -330,53 +330,64 @@ def test_wrappers_reject_what_they_cannot_run():
         T.planar_mbconv_chain(x, [dict(blk, skip=False), dict(blk, skip=False)], H=h, W=w)  # 24 into 16
     # the kernel's limits, checked where the weights are laid out for it
     with pytest.raises(ValueError, match="1 to 16 blocks"):
-        T.pack_planar_blocks([dict(noexp, skip=True)] * 17, 16, "cpu")
+        T.pack_planar_chain([dict(noexp, skip=True)] * 17, 16, "cpu")
     wide = {k: _t(v) for k, v in _block(rng, 264, 264, 8).items()}
     with pytest.raises(ValueError, match="at most 256 input channels"):
-        T.pack_planar_blocks([dict(wide, skip=False)], 264, "cpu")
+        T.pack_planar_chain([dict(wide, skip=False)], 264, "cpu")
 
 
 def test_packed_blocks_hold_the_kernels_layout():
-    """w1 (Ce, Cin) and w2 (Cout, Ce) in bfloat16, wd (Ce, 9) with tap
-    dy*3+dx and the biases in float32, values carried one by one."""
+    """The one-block kernel takes one block packed as the chain kernel packs
+    it (`pack_planar_chain`, ChainLayout): each chunk of 32 expanded channels
+    holds w1 (expanded channel major, rows padded to cin_pad + 8) and w2
+    (output channel major, rows of 40) in bfloat16, then the nine taps (tap
+    dy*3+dx), b1 and bd in float32; b2 follows the chunks; values carried
+    one by one."""
     rng = np.random.RandomState(10)
     c, e, cout = 8, 48, 16
     blk = _block(rng, c, e, cout)
-    packed = T.pack_planar_blocks([dict({k: _t(v) for k, v in blk.items()}, skip=False)], c, "cpu")
-    w1, b1, wd, bd, w2, b2 = packed.tensors
-    assert packed.shapes == ((c, e, cout),) and list(packed.dims) == [c, e, cout, 0]
-    assert (w1.dtype, w2.dtype) == (torch.bfloat16, torch.bfloat16)
-    assert {t.dtype for t in (b1, wd, bd, b2)} == {torch.float32}
-    assert tuple(w1.shape) == (e, c) and tuple(w2.shape) == (cout, e) and tuple(wd.shape) == (e, 9)
+    packed = T.pack_planar_chain([dict({k: _t(v) for k, v in blk.items()}, skip=False)], c, "cpu")
+    lay = T.ChainLayout(packed.shapes[0])
+    assert packed.shapes == (T.ChainShape(c, e, cout, True),) and packed.skips == (False,)
+    assert packed.data.dtype == torch.uint8 and packed.data.numel() == lay.nbytes
+    chunks = packed.data[: lay.nchunks * lay.chunk_bytes].reshape(lay.nchunks, lay.chunk_bytes)
+
+    def part(lo, hi, dtype, *shape):
+        return chunks[:, lo:hi].contiguous().view(dtype).reshape(lay.nchunks, *shape)
+
+    w1 = part(0, lay.off_w2, torch.bfloat16, T.CHAIN_CK, lay.xw)
+    w2 = part(lay.off_w2, lay.off_taps, torch.bfloat16, lay.n2, lay.w2s)
+    taps = part(lay.off_taps, lay.off_b1, torch.float32, 9, T.CHAIN_CK)
+    b1 = part(lay.off_b1, lay.off_bd, torch.float32, T.CHAIN_CK)
     for i in range(c):
         for o in range(0, e, 7):
-            assert w1[o, i].item() == torch.tensor(blk["w1"][0, 0, i, o]).bfloat16().item()
+            assert w1[o // 32, o % 32, i].item() == torch.tensor(blk["w1"][0, 0, i, o]).bfloat16().item()
     for i in range(0, e, 5):
         for o in range(cout):
-            assert w2[o, i].item() == torch.tensor(blk["w2"][0, 0, i, o]).bfloat16().item()
+            assert w2[i // 32, o, i % 32].item() == torch.tensor(blk["w2"][0, 0, i, o]).bfloat16().item()
     for dy in range(3):
         for dx in range(3):
-            np.testing.assert_array_equal(wd[:, dy * 3 + dx].numpy(), blk["wd"][dy, dx, 0])
-    np.testing.assert_array_equal(b1.numpy(), blk["b1"])
-    assert all(t.is_contiguous() for t in packed.tensors)
-    assert list(packed.pointers) == [t.data_ptr() for t in packed.tensors]
+            np.testing.assert_array_equal(taps[:, dy * 3 + dx].reshape(-1)[:e].numpy(), blk["wd"][dy, dx, 0])
+    np.testing.assert_array_equal(b1.reshape(-1)[:e].numpy(), blk["b1"])
+    b2 = packed.data[lay.nchunks * lay.chunk_bytes:][: 4 * cout].view(torch.float32)
+    np.testing.assert_array_equal(b2.numpy(), blk["b2"])
 
 
 def test_one_block_takes_packed_blocks_only_for_the_kernel():
-    """`planar_mbconv` takes the `PackedBlocks` of one block in the place of
+    """`planar_mbconv` takes the `PackedChain` of one block in the place of
     its weights, for the kernel: a CPU tensor raises, as in the chain wrapper,
     and so does a call with neither the weights nor a packed block."""
     rng = np.random.RandomState(11)
     h, w = 8, 16
     x = torch.from_numpy(_planar_input(rng, 1, 16, h, w)).bfloat16()
     blk = dict({k: _t(v) for k, v in _block(rng, 16, 96, 16).items()}, skip=True)
-    packed = T.pack_planar_blocks([blk], 16, "cpu")
-    assert list(packed.dims) == [16, 96, 16, 1]
+    packed = T.pack_planar_chain([blk], 16, "cpu")
+    assert packed.shapes == (T.ChainShape(16, 96, 16, True),) and packed.skips == (True,)
     with pytest.raises(ValueError, match="packed blocks are for the kernel"):
         T.planar_mbconv(x, packed, H=h, W=w)
     with pytest.raises(ValueError, match="packed blocks are for the kernel"):
         T.planar_mbconv_chain(x, packed, H=h, W=w)
-    with pytest.raises(TypeError, match="or the PackedBlocks of one block"):
+    with pytest.raises(TypeError, match="or the PackedChain of one block"):
         T.planar_mbconv(x, blk["w1"], blk["b1"], H=h, W=w, skip=True)
-    with pytest.raises(TypeError, match="or the PackedBlocks of one block"):
+    with pytest.raises(TypeError, match="or the PackedChain of one block"):
         T.planar_mbconv(x, *[blk[k] for k in _KEYS], H=h, W=w)              # no `skip`

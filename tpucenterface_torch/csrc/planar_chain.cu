@@ -1,8 +1,11 @@
-// A chain of N MobileNetV2 inverted-residual blocks (stride 1) on the
-// row-padded planar layout in ONE cooperative launch, for Hopper (sm_90a).
+// MobileNetV2 inverted-residual blocks (stride 1) on the row-padded planar
+// layout, for Hopper (sm_90a): a chain of N blocks in ONE cooperative launch,
+// and one block alone.
 //
-// Replaces the TPU kernel of tpucenterface/ops/planar_mbconv.py:
+// Replaces the TPU kernels of tpucenterface/ops/planar_mbconv.py:
 //   tcf_planar_chain  <-  planar_mbconv_chain  (kernel _chain_kernel)
+//   tcf_planar_block  <-  planar_mbconv        (kernel _kernel)
+// The one-block kernel's design follows the chain's, below it.
 //
 // Layout: activations (B, C, H*Wp) bf16, channel planes of H rows of Wp pixels;
 // columns W..Wp-1 of a row are pad columns, read as zeros whatever they hold and
@@ -74,13 +77,59 @@
 // - The epilogue adds b2 and the skip (from the input tile in shared memory)
 //   and stores bf16 into the channel planes.
 //
+// One block alone (tcf_planar_block). Its input comes from device memory,
+// at maps up to 320x320 (the chain's come from L2, at most 80 high), and at
+// the model's first blocks the bytes (block 0: 316 MB, 0.094 ms) and the
+// depthwise (2 float32 instructions a tap) are the bounds. The plan
+// (plan_planar_mbconv) picks per launch one of the chain kernel's variants on
+// a chain of one (wide outputs, small maps: the split variant holds Cout 160
+// in one pass, so the expand and the depthwise run once a tile) or the
+// streamed kernel `planar_block_stream`, which the model's blocks 0, 2 and 4
+// take. What held its first version back (a float32 output cast in a second
+// pass, one block of 8 warps an SM waiting on every tile load and every
+// chunk's weights, transposing 2-byte loads, integer divisions by run-time
+// sizes in every item) and what the streamed kernel does about it:
+// - bf16 straight from the epilogue: the float32 sum is rounded once, the
+//   value the cast of a float32 output gave; no second pass.
+// - Persistent thread blocks of 8 warps, two an SM where the plan's shared
+//   memory allows (<= 113 KB each), walking the tiles. Tile t+1's input rows
+//   arrive by tensor copies (TMA, a 2-D map of H*Wp positions by B*Cin
+//   planes, completion on an mbarrier) while tile t computes. A box's first
+//   column must lie on 16 bytes (the card faults on a box at any other
+//   column) and rows start at gy*Wp, which is rarely a multiple of 8: halo
+//   row hy is copied from the 16 bytes at or before its first position,
+//   IWB = TW + 9 rounded up to 8 columns of Cin planes, and is read
+//   (flat & 7) columns in. Whatever lies around the map (pad columns, rows
+//   of other images or planes, zeros past the tensor) is masked by index.
+// - Stage A reads the rows with ldmatrix.trans: the expand's A fragments,
+//   or, without an expand, the input's own channels, stored to their halo
+//   positions in es; one item is a 16-column M tile by all 32 channels of
+//   the chunk, its divisions by multiply-high with per-launch constants.
+// - The weights: every chunk resident when there is a buffer for each (the
+//   plan says so: block 0's one chunk, block 2's five), copied once; else the
+//   chain's ring of three, two chunks ahead (block 2 on 8x15 tiles: 0.573 ms
+//   resident, 0.596 with the ring). Stages B and C are the chain's; a chunk
+//   takes two barriers (three with the ring).
+// - Rectangles of at most 2x2 project tiles (16 sums a thread) where the
+//   output allows, else 2x4: the 2x2 instantiation takes 107 registers to
+//   the 2x4's 114, which leaves the depthwise room (block 0 on 4x47 tiles:
+//   0.461 ms against 0.489). The products stay on mma.sync m16n8k16, as in
+//   the chain: a warp's project is at most 2x4 tiles of 16 positions by 8
+//   channels, and wgmma's 64-row products would need four warps to share
+//   one rectangle; not tried.
+// (Times: kernels/sweep_b4a.py, bs32 @ 640, NVIDIA H100 80GB HBM3.) A
+// clock64 profile of the phases at block 0 put the depthwise first, then
+// the wait on the project's results; the epilogue's stores are a small part.
+//
 // Not bit-equal to a float32 matrix product of the same bf16 operands: the
 // tensor cores sum in another order, so a value next to a bf16 rounding
 // boundary can land one bf16 step away. The depthwise keeps its sum order.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -102,12 +151,16 @@ struct Block {
   int cin, ce, cout, skip, expand, ck, th, tw, pm, pn;
   // what follows from it
   int IH, IW, NPOS, XP;               // halo'd tile; row of xs in positions
+  int IWB;                            // the one-block kernel's xs row: IW + 7 positions from 16 bytes, rounded to 8
+  unsigned g_magic, tw_magic;         // the one-block kernel's divisions by IWB / 8 and by TW (div_small)
   int M, MT, NT, XG;                  // output positions, their M tiles, N tiles of Cout, groups of four columns
   int tiles_x, tiles_y, items;
   int cin_pad, XW;                    // K of the expand; row of the w1 chunk in bf16
   int nchunks, chunk_bytes, off_w2, off_taps, off_b1, off_bd;
   int ngroups, rects;                 // N groups of the rectangles; rectangles (one a warp)
   int off_xs, off_es, off_ds, ds_elems;   // shared memory, from the tile's base; bf16 of a ds buffer
+  int xs_row;                         // the one-block kernel's elements of xs between halo rows
+  int off_bar;                        // the one-block kernel's two tile barriers, from the tile's base
   long long wofs;                     // byte offset of the block's chunks in `packed`; b2 follows them
 };
 
@@ -115,6 +168,7 @@ struct Chain {
   Block blk[kMaxBlocks];
   int n, B, H, W, Wp, relu6;
   int chunk_max;                      // bytes of one of the kBuffers chunk buffers
+  int nbuf;                           // the one-block kernel's chunk buffers: kBuffers, or every chunk
   int threads;                        // of a thread block
   const __nv_bfloat16* x;
   __nv_bfloat16* out;
@@ -133,6 +187,12 @@ __device__ __forceinline__ float2 round_bf16x2(float lo, float hi) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// n / d for 0 <= n < 2^16 and 1 <= d < 2^16, magic = ceil(2^32 / d) (0 for
+// d = 1; see magic_of)
+__device__ __forceinline__ int div_small(int n, unsigned magic, int d) {
+  return d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned>(n), magic));
 }
 
 // The warp's index, broadcast from lane 0 so that the compiler knows it is the
@@ -204,6 +264,38 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// mbarriers and tensor copies (the one-block kernel's input tiles)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of the 2-D tensor map at (c0, c1) into shared memory, its bytes
+// counted on `bar`; coordinates outside the tensor read zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void regs_down() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R)); }
 
@@ -223,6 +315,7 @@ __device__ __forceinline__ void regs_up() { asm volatile("setmaxnreg.inc.sync.al
 
 struct Tile {
   int img, oy0, ox0;
+  int flat0, wp, H, W;  // offset in a plane of the halo's first position; Wp; the map
   int* where;
   __nv_bfloat16* xs;
   float* es;
@@ -240,6 +333,10 @@ __device__ __forceinline__ Tile tile_of(const Chain& p, const Block& k, int item
   t.img = rest / k.tiles_y;
   t.oy0 = ty * k.th;
   t.ox0 = tx * k.tw;
+  t.flat0 = (t.oy0 - 1) * p.Wp + t.ox0 - 1;
+  t.wp = p.Wp;
+  t.H = p.H;
+  t.W = p.W;
   unsigned char* base = smem + kBuffers * p.chunk_max;
   t.where = reinterpret_cast<int*>(base);
   t.xs = reinterpret_cast<__nv_bfloat16*>(base + k.off_xs);
@@ -401,6 +498,98 @@ __device__ __forceinline__ void stage_a(const Block& k, int ch, const Tile& tl, 
   }
 }
 
+// Stage A of the streamed one-block kernel, as stage_a, from xs as the
+// tensor copies leave it: [IH][cin_pad][IWB] rows, halo row hy starting at
+// the 16 bytes at or before its first position, shift(hy) = (flat0 + hy * Wp)
+// & 7 columns earlier, holding whatever lies around the map. An item is two
+// 8-column groups of xs (an M tile) by the chunk's 32 channels: the expand's
+// A fragments by ldmatrix.trans, or without an expand the input's own
+// channels by the same ldmatrix.trans; each value goes to its halo position
+// in es, masked by index (columns before the shift and past the halo are not
+// stored).
+__device__ __forceinline__ void stage_a_rows(const Block& k, int ch, const Tile& tl, const unsigned char* cur,
+                                             float cap, int warp, int nw) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int G = k.IWB / 8, groups = k.IH * G;
+  // A: matrix j = lane / 8 is channels 8 * (j / 2).. of the xs columns of group 2 * m + j % 2
+  const __nv_bfloat16* xa = tl.xs + ((lane & 7) + 8 * (lane >> 4)) * k.IWB;
+  const int kstep = 16 * k.IWB;
+  // B: matrix j is expanded channels 8 * (j / 2).., input channels 8 * (j % 2)..
+  const __nv_bfloat16* w1s = reinterpret_cast<const __nv_bfloat16*>(cur);
+  const float* b1s = reinterpret_cast<const float*>(cur + k.off_b1);
+  const __nv_bfloat16* wb = w1s + ((lane & 7) + 8 * (lane >> 4)) * k.XW + 8 * ((lane >> 3) & 1);
+  const int c0 = ch * CK;   // without an expand: the input's channels c0 ..
+  const bool full = c0 + CK <= k.ce;
+  for (int m = warp; m < (groups + 1) / 2; m += nw) {
+    // a group past the last reads the last; never stored
+    const int g8 = min(2 * m + ((lane >> 3) & 1), groups - 1);
+    const int gy8 = div_small(g8, k.g_magic, G);
+    const __nv_bfloat16* xr = xa + gy8 * k.xs_row + 8 * (g8 - gy8 * G);
+    float2 v[2][4];   // [half][nt]: position g + 8 half of the M tile, channels 8 nt + 2 tig, +1
+    if (k.expand) {
+      float ea[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ea[nt][r] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < k.cin_pad / 16; ++ks) {
+        uint32_t a[4], b[4], bb[4];
+        ldsm_x4_trans(a, xr + ks * kstep);
+        ldsm_x4(b, wb + ks * 16);
+        ldsm_x4(bb, wb + 16 * k.XW + ks * 16);
+        mma_bf16(ea[0], a, b[0], b[1]);
+        mma_bf16(ea[1], a, b[2], b[3]);
+        mma_bf16(ea[2], a, bb[0], bb[1]);
+        mma_bf16(ea[3], a, bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float2 bias = *reinterpret_cast<const float2*>(b1s + nt * 8 + 2 * tig);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          v[half][nt] = round_bf16x2(act(ea[nt][2 * half] + bias.x, cap), act(ea[nt][2 * half + 1] + bias.y, cap));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // channels c0 + 16 h ..: zeros past Ce (past cin_pad they are not loaded)
+        uint32_t a[4] = {0u, 0u, 0u, 0u};
+        if (c0 + 16 * h < k.cin_pad) ldsm_x4_trans(a, xr + (c0 / 16 + h) * kstep);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[half + 2 * q]));
+            if (!full) {
+              const int c = c0 + 16 * h + 8 * q + 2 * tig;
+              f = make_float2(c < k.ce ? f.x : 0.f, c + 1 < k.ce ? f.y : 0.f);
+            }
+            v[half][2 * h + q] = f;
+          }
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // xs column -> halo position of its row
+      const int gg = 2 * m + half;
+      const int hy = div_small(gg, k.g_magic, G);
+      const int hx = 8 * (gg - hy * G) + g - ((tl.flat0 + hy * tl.wp) & 7);
+      if (gg >= groups || hx < 0 || hx >= k.IW) continue;
+      const int gy = tl.oy0 - 1 + hy, gx = tl.ox0 - 1 + hx;
+      const bool inside = gy >= 0 && gy < tl.H && gx >= 0 && gx < tl.W;
+      float* e = tl.es + (hy * k.IW + hx) * ESW + 2 * tig;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        *reinterpret_cast<float2*>(e + nt * 8) = inside ? v[half][nt] : make_float2(0.f, 0.f);
+      }
+    }
+  }
+}
+
 // Stage B: the depthwise of chunk es into ds, four outputs of a row by two
 // channels a thread; the channel pair, and so its taps, is the same in every
 // unit of a thread (nth is a multiple of CK / 2), and its units go along the
@@ -546,6 +735,59 @@ __device__ __forceinline__ void epilogue(const Chain& p, const Block& k, const R
           float v = acc[ii][jj][2 * half + j] + __ldg(b2 + c);
           if (k.skip) v += __bfloat162float(tl.xs[c * k.XP + self]);
           o[c * plane] = __float2bfloat16_rn(v);
+        }
+      }
+    }
+  }
+}
+
+// The streamed kernel's epilogue: as `epilogue`, the skip from xs as
+// stage_a_rows reads it, b2 read once, offsets in 32 bits (derive checks that
+// an image's output fits).
+template <int PMX, int PNX>
+__device__ __forceinline__ void epilogue_rows(const Chain& p, const Block& k, const Rect& rc, const Tile& tl,
+                                              const float (&acc)[PMX][PNX][4]) {
+  if (!rc.has) return;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int plane = p.H * p.Wp;
+  const float* b2 = reinterpret_cast<const float*>(p.packed + k.wofs + static_cast<long long>(k.nchunks) * k.chunk_bytes);
+  __nv_bfloat16* ob = p.out + static_cast<size_t>(tl.img) * k.cout * plane;
+  float b2r[PNX][2];
+#pragma unroll
+  for (int jj = 0; jj < PNX; ++jj)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = (rc.ng * rc.pn + jj) * 8 + 2 * tig + j;
+      b2r[jj][j] = jj < rc.pn && c < k.cout ? __ldg(b2 + c) : 0.f;
+    }
+#pragma unroll
+  for (int ii = 0; ii < PMX; ++ii) {
+    const int mt = rc.mg * rc.pm + ii;
+    if (ii >= rc.pm || mt >= k.MT) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int pos = mt * 16 + g + 8 * half;
+      if (pos >= k.M) continue;
+      const int oy = div_small(pos, k.tw_magic, k.tw);
+      const int ox = pos - oy * k.tw;
+      const int gy = tl.oy0 + oy, gx = tl.ox0 + ox;
+      if (gy >= p.H || gx >= p.W) continue;
+      // the position in the halo'd tile
+      const __nv_bfloat16* xself = tl.xs + (oy + 1) * k.xs_row + ox + 1 + ((tl.flat0 + (oy + 1) * tl.wp) & 7);
+      const int o = gy * p.Wp + gx;
+#pragma unroll
+      for (int jj = 0; jj < PNX; ++jj) {
+        const int nt = rc.ng * rc.pn + jj;
+        if (jj >= rc.pn || nt >= k.NT) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = nt * 8 + 2 * tig + j;
+          if (c >= k.cout) continue;
+          float v = acc[ii][jj][2 * half + j] + b2r[jj][j];
+          if (k.skip) v += __bfloat162float(xself[c * k.IWB]);
+          ob[o + c * plane] = __float2bfloat16_rn(v);
         }
       }
     }
@@ -740,13 +982,110 @@ planar_chain_split(const __grid_constant__ Chain p) {
   }
 }
 
+// ---- one block, streamed: the one-block kernel's own structure ------------
+// Starts the tensor copies of tile `item`'s input rows on `bar`, one thread:
+// halo row hy from the 16 bytes at or before its first position (a box's
+// first column must lie on 16 bytes), [Cin][IWB] into xs, rows xs_row apart.
+__device__ __forceinline__ void load_tile_tma(const Chain& p, const Block& k, const CUtensorMap* map, int item,
+                                              __nv_bfloat16* xs, uint64_t* bar) {
+  const int tx = item % k.tiles_x;
+  const int rest = item / k.tiles_x;
+  const int ty = rest % k.tiles_y;
+  const int img = rest / k.tiles_y;
+  mbar_expect_tx(bar, k.IH * k.cin * k.IWB * 2);
+  for (int hy = 0; hy < k.IH; ++hy) {
+    tma_load_2d(xs + hy * k.xs_row, map, ((ty * k.th - 1 + hy) * p.Wp + tx * k.tw - 1) & ~7, img * k.cin, bar);
+  }
+}
+
+// NW warps, every warp every stage, persistent thread blocks (two an SM where
+// the shared memory allows) walking the tiles of one block. Tile t's input
+// rows land by tensor copies in xs[t % 2] while tile t - 1 computes. With a
+// buffer for every chunk (p.nbuf >= nchunks) the weights are copied once and
+// stay; else they come by cp.async into three buffers two chunks ahead, as
+// in the chain. A chunk: expand (es), barrier, depthwise (ds), barrier,
+// project into the registers.
+template <int NW, int PMX, int PNX>
+__global__ void __launch_bounds__(NW * 32, 2)
+planar_block_stream(const __grid_constant__ Chain p, const __grid_constant__ CUtensorMap xmap) {
+  constexpr int NTH = NW * 32;
+  extern __shared__ __align__(128) unsigned char smem_rows[];   // the tensor copies land on 128 bytes
+  unsigned char* smem = smem_rows;
+  const Block& k = p.blk[0];
+  const int tid = threadIdx.x;
+  const int warp = warp_index();
+  const float cap = act_cap(p);
+  unsigned char* base = smem + p.nbuf * p.chunk_max;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + k.off_bar);
+  __nv_bfloat16* xs_all = reinterpret_cast<__nv_bfloat16*>(base + k.off_xs);
+  const bool resident = k.nchunks <= p.nbuf;
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+  }
+  // the rows of the K padding (Cin .. cin_pad-1) of both buffers: zeros, once
+  // (the copies write rows below Cin only)
+  const int npad = (k.cin_pad - k.cin) * k.IWB;
+  for (int j = tid; j < 2 * k.IH * npad; j += NTH) {
+    const int r = j / npad;
+    xs_all[r * k.xs_row + k.cin * k.IWB + (j - r * npad)] = __float2bfloat16_rn(0.f);
+  }
+  Cursor cur = first_chunk(p);
+  int issued = 0, q = 0;
+  if (resident) {
+    for (int c = 0; c < k.nchunks; ++c) copy_chunk(p, k, c, smem + c * p.chunk_max, tid, NTH);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  const Rect rc = rect_of(k, warp);
+  if (tid == 0 && blockIdx.x < k.items) load_tile_tma(p, k, &xmap, blockIdx.x, xs_all, &bars[0]);
+  int t = 0;
+  for (int item = blockIdx.x; item < k.items; item += gridDim.x, ++t) {
+    const int b = t & 1;
+    // tile_of puts the tile after kBuffers chunk buffers; here there are nbuf
+    Tile tl = tile_of(p, k, item, smem + (p.nbuf - kBuffers) * p.chunk_max);
+    tl.xs = xs_all + b * k.IH * k.xs_row;
+    __syncthreads();  // the previous tile's readers of es, ds and xs[b ^ 1] are done
+    if (tid == 0 && item + static_cast<int>(gridDim.x) < k.items) {
+      load_tile_tma(p, k, &xmap, item + gridDim.x, xs_all + (b ^ 1) * k.IH * k.xs_row, &bars[b ^ 1]);
+    }
+    if (!resident) {
+      while (issued < q + 2) issue(p, smem, cur, issued, tid, NTH);   // chunks q and q+1
+    }
+    mbar_wait(&bars[b], (t >> 1) & 1);   // this tile's rows have landed
+    float acc[PMX][PNX][4];
+    zero_acc(acc);
+    for (int ch = 0; ch < k.nchunks; ++ch, ++q) {
+      if (!resident) {
+        cp_async_wait_one();   // chunk q
+        __syncthreads();       // chunk q has landed for every thread; es is free
+      }
+      const unsigned char* cb = smem + (resident ? ch : q % kBuffers) * p.chunk_max;
+      stage_a_rows(k, ch, tl, cb, cap, warp, NW);
+      __syncthreads();
+      stage_b(k, tl, tl.ds0, cb, cap, tid, NTH);
+      __syncthreads();
+      if (!resident) issue(p, smem, cur, issued, tid, NTH);   // chunk q+2, into chunk q-1's buffer
+      if (rc.has) stage_c(k, rc, tl.ds0, cb, acc);
+    }
+    epilogue_rows(p, k, rc, tl, acc);
+  }
+  zero_pad_columns(p, k.cout);
+  cp_async_wait_all();
+}
+
 int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
+// ceil(2^32 / d) for div_small, 0 for d = 1
+unsigned magic_of(int d) { return d > 1 ? static_cast<unsigned>(((1ULL << 32) + d - 1) / d) : 0u; }
+
 // The sizes a block's table entry implies; the same arithmetic as
-// ChainLayout, chain_tile_smem and _rect's coverage in ops/planar_mbconv.py.
-// `rect_warps` share the project; `nes` es and `nds` ds buffers. Returns the
-// bytes of its tile, or -1 if the entry does not fit.
-int derive(Block& k, int B, int H, int W, int rect_warps, int pmx, int pnx, int nes, int nds) {
+// ChainLayout, chain_tile_smem, block_tile_smem and _rect's coverage in
+// ops/planar_mbconv.py. `rect_warps` share the project; `nes` es and `nds` ds
+// buffers; `rows`: the one-block kernel's tile (two barriers, two xs
+// buffers of halo rows of IWB positions, no where table: it masks by index).
+// Returns the bytes of its tile, or -1 if the entry does not fit.
+int derive(Block& k, int B, int H, int W, int Wp, int rect_warps, int pmx, int pnx, int nes, int nds, bool rows = false) {
   if (k.cin < 1 || k.ce < 1 || k.cout < 1 || k.cin > kMaxCin || k.ck != CK) return -1;
   if (!k.expand && k.ce != k.cin) return -1;
   if (k.skip && k.cin != k.cout) return -1;
@@ -754,6 +1093,8 @@ int derive(Block& k, int B, int H, int W, int rect_warps, int pmx, int pnx, int 
   if (k.pm < 1 || k.pn < 1 || k.pm > pmx || k.pn > pnx) return -1;
   k.IH = k.th + 2;
   k.IW = k.tw + 2;
+  k.IWB = rows ? round_up(k.IW + 7, 8) : k.IW;
+  if (rows && k.IWB > 256) return -1;  // a tensor copy's box is at most 256 wide
   k.NPOS = k.IH * k.IW;
   k.XP = round_up(k.NPOS, 16) + 8;
   k.M = k.th * k.tw;
@@ -775,8 +1116,13 @@ int derive(Block& k, int B, int H, int W, int rect_warps, int pmx, int pnx, int 
   k.off_b1 = k.off_taps + 9 * CK * 4;
   k.off_bd = k.off_b1 + CK * 4;
   k.chunk_bytes = k.off_bd + CK * 4;
-  k.off_xs = round_up(4 * k.NPOS, 16);
-  k.off_es = k.off_xs + k.cin_pad * k.XP * 2;
+  k.g_magic = rows ? magic_of(k.IWB / 8) : 0;
+  k.tw_magic = rows ? magic_of(k.tw) : 0;
+  if (rows && static_cast<long long>(k.cout) * H * Wp >= (1LL << 31)) return -1;   // 32-bit output offsets
+  k.xs_row = rows ? k.cin_pad * k.IWB : 0;
+  k.off_bar = rows ? 0 : round_up(4 * k.NPOS, 16);   // rows: the barriers; else where [NPOS] before xs
+  k.off_xs = rows ? 128 : k.off_bar;                // a tensor copy lands on 128 bytes
+  k.off_es = k.off_xs + (rows ? 2 * k.IH * k.xs_row : k.cin_pad * k.XP) * 2;
   k.off_ds = k.off_es + nes * (k.NPOS + 4) * ESW * 4;
   k.ds_elems = k.MT * 16 * DSW;
   return k.off_ds + nds * k.ds_elems * 2;
@@ -830,6 +1176,56 @@ int launch_split(Chain& p, int smem, int grid, cudaStream_t stream) {
                 (NP * REG_P + NC * REG_C) * 32 / kThreadsAll, smem, grid, stream, asked);
 }
 
+// cuTensorMapEncodeTiled of the driver, found once in the loaded libcuda (the
+// library then needs no link against it); null if it is not there.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// The input (B, Cin, H*Wp) as a 2-D tensor of H*Wp positions by B*Cin planes,
+// read in boxes of IWB positions by Cin planes: one box a halo row of a tile.
+bool input_map(CUtensorMap* map, const Chain& p, const Block& k) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.H) * p.Wp, static_cast<cuuint64_t>(p.B) * k.cin};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.H) * p.Wp * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(k.IWB), static_cast<cuuint32_t>(k.cin)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(p.x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NW, int PMX, int PNX>
+int launch_stream(Chain& p, const CUtensorMap& map, int smem, int grid, cudaStream_t stream) {
+  static bool asked[kMaxDevices] = {};
+  const void* kernel = reinterpret_cast<const void*>(planar_block_stream<NW, PMX, PNX>);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!asked[dev]) {
+    // the most shared memory a block may take, and the SM's memory split in
+    // favour of shared memory, so that two blocks of up to 113 KB fit
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100)) != cudaSuccess) {
+      return static_cast<int>(e);
+    }
+    asked[dev] = true;
+  }
+  p.threads = NW * 32;
+  planar_block_stream<NW, PMX, PNX><<<grid, NW * 32, smem, stream>>>(p, map);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // A chain of n blocks (1..16) in one cooperative launch on `stream`; returns
@@ -862,7 +1258,7 @@ extern "C" int tcf_planar_chain(
     const int* t = table + kTable * i;
     k.cin = t[0]; k.ce = t[1]; k.cout = t[2]; k.skip = t[3]; k.expand = t[4];
     k.ck = t[5]; k.th = t[6]; k.tw = t[7]; k.pm = t[8]; k.pn = t[9];
-    const int tile = derive(k, B, H, W, split ? consumers : producers, pmx, pnx, split ? 1 : 2, split ? 2 : 1);
+    const int tile = derive(k, B, H, W, Wp, split ? consumers : producers, pmx, pnx, split ? 1 : 2, split ? 2 : 1);
     if (tile < 0 || (i > 0 && k.cin != p.blk[i - 1].cout)) return static_cast<int>(cudaErrorInvalidValue);
     k.wofs = at;
     at += static_cast<long long>(k.nchunks) * k.chunk_bytes + round_up(4 * k.cout, 16);
@@ -884,4 +1280,56 @@ extern "C" int tcf_planar_chain(
   if (!split && producers == 16 && pmx == 2 && pnx == 4) return launch_all<16, 2, 4>(p, smem_bytes, grid, s);
   if (producers == 8 && consumers == 8 && pmx == 4 && pnx == 5) return launch_split<8, 8, 4, 5, 96, 160>(p, smem_bytes, grid, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One block (B4a) on `stream`: x (B, Cin, H*Wp) and out (B, Cout, H*Wp)
+// bf16, contiguous, 16-byte aligned; `packed` one block as pack_planar_chain
+// lays it out; `table` its ten ints as for tcf_planar_chain. With `streamed`
+// the one-block kernel (producers 8, consumers 0, pmx 2, pnx 2 or 4): persistent
+// thread blocks, the input tiles by tensor copies; else the chain kernel's
+// variant (producers, consumers, pmx, pnx) on a chain of one. chunk_buffers
+// (streamed only): 3, a ring, or the block's number of chunks if that is
+// more, every chunk resident. smem_bytes and grid are the plan's
+// (plan_planar_mbconv). Returns the CUDA error of the launch as an int (0:
+// launched), or cudaErrorInvalidValue for shapes or a plan the kernel does
+// not take.
+extern "C" int tcf_planar_block(
+    const void* x, void* out, const void* packed, long long packed_bytes, const int* table,
+    int B, int H, int W, int Wp, int relu6, int producers, int consumers, int pmx, int pnx, int streamed,
+    int chunk_buffers, int smem_bytes, int grid, void* stream) {
+  if (!streamed) {
+    return tcf_planar_chain(x, out, nullptr, nullptr, packed, packed_bytes, table, 1, B, H, W, Wp, relu6, producers,
+                            consumers, pmx, pnx, smem_bytes, grid, stream);
+  }
+  if (!x || !out || !packed || !table || B < 1 || H < 1 || W < 1 || Wp < W ||
+      static_cast<long long>(H) * Wp >= (1LL << 31) || reinterpret_cast<uintptr_t>(packed) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || producers != 8 || consumers != 0 || pmx != 2 || (pnx != 2 && pnx != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Chain p;
+  p.n = 1; p.B = B; p.H = H; p.W = W; p.Wp = Wp; p.relu6 = relu6;
+  Block& k = p.blk[0];
+  k.cin = table[0]; k.ce = table[1]; k.cout = table[2]; k.skip = table[3]; k.expand = table[4];
+  k.ck = table[5]; k.th = table[6]; k.tw = table[7]; k.pm = table[8]; k.pn = table[9];
+  const int tile = derive(k, B, H, W, Wp, producers, pmx, pnx, 1, 1, true);
+  if (tile < 0) return static_cast<int>(cudaErrorInvalidValue);
+  k.wofs = 0;
+  p.chunk_max = k.chunk_bytes;
+  if (chunk_buffers != kBuffers && (chunk_buffers != k.nchunks || k.nchunks < kBuffers)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.nbuf = chunk_buffers;
+  const long long smem = static_cast<long long>(p.nbuf) * k.chunk_bytes + tile;
+  const long long nbytes = static_cast<long long>(k.nchunks) * k.chunk_bytes + round_up(4 * k.cout, 16);
+  if (nbytes != packed_bytes || smem != smem_bytes || smem > kMaxSmem || grid < 1 || grid > k.items) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.scratch[0] = p.scratch[1] = nullptr;
+  p.packed = static_cast<const uint8_t*>(packed);
+  CUtensorMap map;
+  if (!input_map(&map, p, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pnx == 2 ? launch_stream<8, 2, 2>(p, map, smem_bytes, grid, s) : launch_stream<8, 2, 4>(p, map, smem_bytes, grid, s);
 }

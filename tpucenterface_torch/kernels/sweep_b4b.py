@@ -3,6 +3,7 @@ the default model's three chains at batch 32 and a 640 input, on one CUDA
 card:
 
     python3 -m tpucenterface_torch.kernels.sweep_b4b
+    python3 -m tpucenterface_torch.kernels.sweep_b4b --against DIR
 
 For each chain (random weights and input from a seed) it runs the planner's
 plan and every plan of `ops.planar_mbconv.chain_plans` (each variant of
@@ -14,12 +15,23 @@ values), and prints one JSON line a chain: the planner's plan and its time,
 and the fastest plans with theirs (device milliseconds a launch, launches
 back to back between CUDA events). `plan_planar_chain`'s cost model is
 checked against these lines.
+
+With `--against DIR` (a checkout of another commit, e.g. the parent's) it
+first times `planar_mbconv_chain` of DIR's package and of this one on packed
+chains (the planner's plan of each), each in its own process, in turns
+(DIR, this, this, DIR), and prints one JSON line for each run and a summary:
+each chain's median device time a call in both, and its spread (the largest
+less the smallest of one package's two runs).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -32,6 +44,7 @@ CHAINS_640 = ((4, 80, 32, [(192, 32)] * 2), (7, 40, 64, [(384, 64)] * 3 + [(384,
               (14, 20, 160, [(960, 160)] * 2 + [(960, 320)]))
 # one bfloat16 step (chip_smoke.py's PLANAR_ATOL, PLANAR_RTOL) on at most 1% of the values
 ATOL, RTOL, MAX_DIFFERING = 0.04, 2.0 ** -6, 0.01
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _blocks(gen, c0, spec, dev):
@@ -120,9 +133,55 @@ def sweep_chain(first, hw, c0, spec, gen, b=32, top=6):
             "fastest": [[_desc(plan), ms] for ms, plan in fastest]}
 
 
+def wrapper_times():
+    """`planar_mbconv_chain` of the imported package at every chain on its
+    packed weights: the device time a call (calls back to back)."""
+    gen = torch.Generator().manual_seed(1)
+    out = []
+    for first, hw, c0, spec in CHAINS_640:
+        blocks = _blocks(gen, c0, spec, torch.device("cuda"))
+        wp = pm.padded_width(hw, hw)
+        x = (0.5 * torch.randn(32, c0, hw * wp, generator=gen)).to("cuda", torch.bfloat16)
+        packed = pm.pack_planar_chain(blocks, c0, x.device)
+        out.append({"chain": [first, first + len(spec) - 1],
+                    "device_ms": _ms_a_launch(lambda: pm.planar_mbconv_chain(x, packed, H=hw, W=hw))})
+    return out
+
+
+def against(other: str):
+    """`wrapper_times` of `other`'s package and of this one, each in its own
+    process (this file run as a script, the package from the checkout's
+    root), in turns; then each chain's medians and spreads."""
+    runs = []
+    for name, root in (("against", other), ("this", ROOT), ("this", ROOT), ("against", other)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--wrapper-times"], cwd=root,
+                           capture_output=True, text=True, env={**os.environ, "PYTHONPATH": root})
+        if r.returncode != 0:
+            raise RuntimeError(f"timing the wrapper of {root} failed:\n{r.stdout}{r.stderr}")
+        times = json.loads(r.stdout.strip().splitlines()[-1])
+        runs.append((name, times))
+        print(json.dumps({"wrapper": name, "root": root, "times": times}), flush=True)
+    summary = []
+    for i, (first, _, _, spec) in enumerate(CHAINS_640):
+        ms = {name: [t[i]["device_ms"] for n, t in runs if n == name] for name in ("against", "this")}
+        summary.append({"chain": [first, first + len(spec) - 1],
+                        **{f"{name}_ms": float(np.median(v)) for name, v in ms.items()},
+                        **{f"{name}_spread_ms": max(v) - min(v) for name, v in ms.items()}})
+    print(json.dumps({"summary": summary}), flush=True)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", help="a checkout of another commit whose planar_mbconv_chain to time in turns")
+    parser.add_argument("--wrapper-times", action="store_true", help="print wrapper_times() of the imported package")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sweep_b4b needs a CUDA card")
+    if opts.wrapper_times:
+        print(json.dumps(wrapper_times()), flush=True)
+        return 0
+    if opts.against:
+        against(os.path.abspath(opts.against))
     gen = torch.Generator().manual_seed(0)
     for first, hw, c0, spec in CHAINS_640:
         print(json.dumps(sweep_chain(first, hw, c0, spec, gen)), flush=True)

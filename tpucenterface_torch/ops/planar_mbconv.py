@@ -1,7 +1,6 @@
 """Inverted-residual blocks on the row-padded planar layout: the CUDA kernels
-of `csrc/planar.cu` (one block) and `csrc/planar_chain.cu` (a chain), their
-plain versions, the chain kernel's launch plan and packed weights, and the
-layout helpers.
+of `csrc/planar_chain.cu` (one block, B4a, and a chain, B4b), their plain
+versions, their launch plans and packed weights, and the layout helpers.
 
 Mirrors `tpucenterface/ops/planar_mbconv.py` (`padded_width`,
 `planar_from_nhwc`, `nhwc_from_planar`, `mbconv_reference_planar`,
@@ -28,16 +27,19 @@ Per block, both kernels and both plain versions compute
     p = w2 d + b2 [+ x]                                 (bf16 operands, f32 sums)
 with b1, wd, bd, b2 kept in float32 (the NHWC kernel `ops.fused_mbconv` rounds
 them to bfloat16; this one does not). `planar_mbconv` returns p cast to
-`x.dtype`; `planar_mbconv_chain` rounds p to bfloat16 after every block, adds
-the skip from the rounded value of the block's input, and makes ONE kernel
-launch for the whole chain.
+`x.dtype` (the kernel rounds the float32 sum once to bfloat16 in its
+epilogue, `epilogue_bf16`); `planar_mbconv_chain` rounds p to bfloat16 after
+every block, adds the skip from the rounded value of the block's input, and
+makes ONE kernel launch for the whole chain.
 
-The chain kernel takes its weights packed once (`pack_planar_chain`: block
-by block, chunk by chunk of 32 expanded channels, each chunk one 16-byte
-aligned slab in the layout of its shared-memory buffer) and a launch plan that
-`plan_planar_chain` fits to the map (per block the tile, the chunk width and
-each warp's rectangle of project tiles; per launch the kernel variant, the
-shared memory and the cooperative grid).
+Both kernels take their weights packed once (`pack_planar_chain`: block by
+block, chunk by chunk of 32 expanded channels, each chunk one 16-byte aligned
+slab in the layout of its shared-memory buffer; one block for B4a) and a
+launch plan fitted to the map: `plan_planar_chain` (per block the tile, the
+chunk width and each warp's rectangle of project tiles; per launch the kernel
+variant, the shared memory and the cooperative grid) and
+`plan_planar_mbconv` (the variant, among them the streamed one-block kernel,
+the tile, the rectangles, the shared memory and the persistent grid).
 
 A CUDA tensor launches the kernel (bfloat16 input only) or raises; a CPU
 tensor takes the plain version. There is no `interpret` argument as in the
@@ -58,7 +60,7 @@ import torch.nn.functional as F
 from tpucenterface_torch.ops.fused_mbconv import _act, mbconv_reference
 
 LANE = 128
-# Limits of csrc/planar.cu and csrc/planar_chain.cu: an input tile with its
+# Limits of csrc/planar_chain.cu: an input tile with its
 # halo sits in shared memory at the block's full input width next to the chunk
 # buffers, which 227 KB holds up to 256 channels; the chain's block table is a
 # kernel argument.
@@ -478,6 +480,190 @@ def plan_planar_chain(shapes, b: int, h: int, w: int, sms: int = NUM_SMS) -> Cha
     return best[1]
 
 
+# --------------------------------------------------------------------------- #
+# the one-block kernel's launch plan (csrc/planar_chain.cu, tcf_planar_block)
+# --------------------------------------------------------------------------- #
+
+# (warps, consumer warps, PMX, PNX, streamed): B4a's variants. Streamed is the
+# one-block kernel `planar_block_stream`: 8 warps that take every stage,
+# persistent thread blocks, two an SM where the shared memory allows, the
+# input tiles by tensor copies a tile ahead; rectangles of at most 2 x 2
+# project tiles (16 float32 sums a thread, which leave the depthwise more
+# registers) or 2 x 4. The others are the chain kernel's variants
+# (CHAIN_VARIANTS) on a chain of one: one thread block an SM, the tile loaded
+# when it is taken, 8 producer and 8 consumer warps for wide outputs.
+ONE_BLOCK_VARIANTS = ((8, 0, 2, 2, True), (8, 0, 2, 4, True)) + tuple((*v, False) for v in CHAIN_VARIANTS)
+# shared memory of a thread block when two share an SM: the SM's 228 KB, less
+# the 1 KB the card keeps for each block
+TWO_BLOCKS_SMEM = 233472 // 2 - 1024
+# output tiles (rows, columns) the one-block planner weighs besides
+# CHAIN_TILES, each cut to the map: widths of 16k - 1, whose halo rows, from
+# the 16 bytes at or before their first position, fill boxes of an odd
+# number of 16 bytes (rows of xs that ldmatrix reads on distinct banks)
+ONE_BLOCK_TILES = CHAIN_TILES + ((16, 15), (8, 15), (16, 31), (12, 31), (8, 31), (6, 31), (4, 31), (8, 47), (6, 47),
+                                 (4, 47), (4, 63), (2, 63))
+
+
+def block_tile_smem(tile_h: int, tile_w: int, cin: int) -> int:
+    """Shared memory of one tile of the streamed one-block kernel
+    (csrc/planar_chain.cu, `derive` with rows): two mbarriers (128 bytes),
+    two buffers of the input rows ([tile_h + 2][cin rounded up to 16][IWB]
+    bf16: a halo row of tile_w + 2 positions read from the 16 bytes at or
+    before it, IWB = tile_w + 9 rounded up to 8), one expanded chunk
+    (float32, position-major, four positions more) and one depthwise output
+    (bf16)."""
+    npos = (tile_h + 2) * (tile_w + 2)
+    mt = -(-(tile_h * tile_w) // 16)
+    return (128 + 2 * (tile_h + 2) * _round_up(cin, 16) * block_row_width(tile_w) * 2
+            + (npos + 4) * (CHAIN_CK + 8) * 4 + mt * 16 * (CHAIN_CK + 8) * 2)
+
+
+def block_row_width(tile_w: int) -> int:
+    """IWB: positions of a halo row in the streamed kernel's input buffer,
+    tile_w + 2 of them read from the 16 bytes at or before the first."""
+    return _round_up(tile_w + 9, 8)
+
+
+@dataclass(frozen=True)
+class OneBlockPlan:
+    """One launch of the one-block kernel (B4a): the variant (warps, consumer
+    warps, PMX, PNX, streamed), the output tile (rows, columns), each warp's
+    project rectangle (PM M tiles by PN N tiles), the chunk buffers (three, a
+    ring; or, streamed, one for each of more than three chunks, copied once),
+    the dynamic shared memory (the chunk buffers, then the tile), thread
+    blocks an SM, and the grid."""
+
+    variant: Tuple[int, int, int, int, bool]
+    tile_h: int
+    tile_w: int
+    pm: int
+    pn: int
+    chunk_buffers: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: int
+
+    @property
+    def streamed(self) -> bool:
+        return self.variant[4]
+
+    def describe(self) -> str:
+        warps, consumers, pmx, pnx, streamed = self.variant
+        kind = (f"streamed, {warps} warps, {self.blocks_per_sm} blocks an SM, {self.chunk_buffers} chunk buffers"
+                if streamed else
+                f"chain of one, {warps} + {consumers} warps" if consumers else f"chain of one, {warps} warps")
+        return (f"{self.tile_h}x{self.tile_w} tile, {kind}, {self.pm}x{self.pn} rectangles of at most {pmx}x{pnx}, "
+                f"grid {self.grid}")
+
+
+def _one_block_shape(shape, skip: bool) -> ChainShape:
+    s = ChainShape(*shape)
+    if min(s.cin, s.ce, s.cout) < 1 or s.cin > MAX_CIN or (not s.expand and s.ce != s.cin):
+        raise ValueError(f"the one-block kernel takes 1 <= Cin <= {MAX_CIN} and Ce == Cin without an expand, got {s}")
+    if skip and not s.expand:
+        raise ValueError("a skip without an expand is not supported")
+    if skip and s.cin != s.cout:
+        raise ValueError(f"the skip needs Cin == Cout, got {s.cin} and {s.cout}")
+    return s
+
+
+def _block_stream_cost(b, h, w, s: ChainShape, th, tw, pm, pn, pnx, resident, per_sm, sms) -> float:
+    """Estimated time of the streamed kernel, in cycles of the busiest SM: a
+    chunk of a tile is its expand over whole rows of the input buffer, its
+    depthwise (units of four outputs by two channels) and its project one
+    after the other over the 8 warps, two barriers between (three when the
+    weights are not resident); two thread blocks on an SM overlap part of
+    each other's work; the 2 x 4 variant's eight more sums a thread cost the
+    rest of the kernel 7%. The input rows arrive ahead, so the time is
+    also at least the bytes that the tiles read (their halos included) and
+    write, at 10 bytes a cycle of an SM. Fitted to `kernels/sweep_b4a.py`."""
+    iwb = block_row_width(tw)
+    mtiles = -(-((th + 2) * iwb) // 16)
+    if s.expand:
+        stage_a = -(-mtiles // 8) * ((_round_up(s.cin, 16) // 16) * 30 + 690)
+    else:
+        stage_a = -(-mtiles // 8) * 800
+    stage_b = -(-(16 * th * -(-tw // 4)) // 256) * 490
+    chunk = stage_a + stage_b + pm * pn * 2 * 60 + 300 + (2 if resident else 3) * 350
+    tile = -(-s.ce // CHAIN_CK) * chunk + 1060 + pm * pn * 200
+    items = b * -(-h // th) * -(-w // tw)
+    compute = -(-items // (sms * per_sm)) * tile * (1.34 if per_sm == 2 else 1.0) * (1.07 if pnx > 2 else 1.0)
+    nbytes = items * (th + 2) * iwb * s.cin * 2 + b * h * w * s.cout * 2
+    return max(compute, nbytes / (10.0 * sms))
+
+
+def _one_block_candidates(s: ChainShape, b, h, w, sms, variants, tiles):
+    """(cost, OneBlockPlan) of every variant, tile and (streamed) chunk
+    buffering that fits."""
+    chunk = ChainLayout(s).chunk_bytes
+    nchunks = -(-s.ce // CHAIN_CK)
+    nt = -(-s.cout // 8)
+    for variant in variants:
+        warps, consumers, pmx, pnx, streamed = variant
+        for th, tw in dict.fromkeys((min(th, h), min(tw, w)) for th, tw in tiles):
+            rect = _rect(-(-(th * tw) // 16), nt, consumers or warps, pmx, pnx)
+            if rect is None or (streamed and block_row_width(tw) > 256):
+                continue
+            items = b * -(-h // th) * -(-w // tw)
+            if not streamed:
+                smem = 3 * chunk + chain_tile_smem(th, tw, s.cin, consumers > 0)
+                if smem <= MAX_SMEM:
+                    # the chain's cost, and its tile load from device memory, not
+                    # overlapped: eight 2-byte loads in flight a producer thread
+                    # (~2290 cycles a round of them, fitted to kernels/sweep_b4a.py)
+                    load = -(-(_round_up(s.cin, 16) * (th + 2) * (tw + 2)) // (warps * 32 * 8)) * 2290
+                    cost = (_chain_block_cost(b, h, w, s, ChainBlockPlan(th, tw, CHAIN_CK, *rect), variant[:4], sms)
+                            + -(-items // sms) * load)
+                    yield cost, OneBlockPlan(variant, th, tw, *rect, 3, smem, 1, min(items, sms))
+                continue
+            for buffers in dict.fromkeys((3, max(3, nchunks))):
+                smem = buffers * chunk + block_tile_smem(th, tw, s.cin)
+                if smem > MAX_SMEM:
+                    continue
+                per_sm = 2 if smem <= TWO_BLOCKS_SMEM else 1
+                cost = _block_stream_cost(b, h, w, s, th, tw, *rect, pnx, buffers >= nchunks, per_sm, sms)
+                yield cost, OneBlockPlan(variant, th, tw, *rect, buffers, smem, per_sm, min(items, sms * per_sm))
+
+
+def one_block_plans(shape, b: int, h: int, w: int, sms: int = NUM_SMS, *, skip: bool = False):
+    """The launch plans `kernels/sweep_b4a.py` times: every variant of
+    ONE_BLOCK_VARIANTS with every tile of ONE_BLOCK_TILES (cut to the map)
+    of at least 64 positions (or the whole map) that fits."""
+    s = _one_block_shape(shape, skip)
+    tiles = [t for t in ONE_BLOCK_TILES if min(t[0], h) * min(t[1], w) >= min(64, h * w)]
+    for _, plan in _one_block_candidates(s, b, h, w, sms, ONE_BLOCK_VARIANTS, tiles):
+        yield plan
+
+
+@functools.lru_cache(maxsize=256)
+def plan_planar_mbconv(shape, b: int, h: int, w: int, sms: int = NUM_SMS, *, skip: bool = False) -> OneBlockPlan:
+    """The one-block kernel's launch plan for a block of `shape` (ChainShape,
+    or (Cin, Ce, Cout[, expand])) on a (b, h, w) map on `sms` SMs: of every
+    variant of ONE_BLOCK_VARIANTS and tile of ONE_BLOCK_TILES (cut to the
+    map) that fits the shared memory, the one that its cost model
+    (`_block_stream_cost`, `_chain_block_cost`) finds cheapest. Raises
+    ValueError on a block the kernel does not take (Cin > MAX_CIN, a skip
+    without an expand) or if no plan fits."""
+    s = _one_block_shape(shape, skip)
+    if min(b, h, w, sms) < 1:
+        raise ValueError(f"a non-empty map and at least one SM, got {(b, h, w, sms)}")
+    best = min(_one_block_candidates(s, b, h, w, sms, ONE_BLOCK_VARIANTS, ONE_BLOCK_TILES), key=lambda c: c[0],
+               default=None)
+    if best is None:
+        raise ValueError(f"no plan of the one-block kernel fits {s} at {(b, h, w)}")
+    return best[1]
+
+
+def epilogue_bf16(sums: torch.Tensor) -> torch.Tensor:
+    """The kernels' epilogue rounding in plain torch: float32 sums (the
+    project, b2 and the skip added) rounded once to the nearest bfloat16,
+    ties to even, as `__float2bfloat16_rn` does; NaN stays NaN."""
+    bits = sums.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    up = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16
+    up = torch.where(torch.isnan(sums.float()), (bits >> 16) | 0x40, up) & 0xFFFF
+    return (up - ((up >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
+
+
 @dataclass(frozen=True)
 class PackedChain:
     """A chain's weights in the chain kernel's layout (`pack_planar_chain`):
@@ -592,13 +778,15 @@ _P, _I32 = ctypes.c_void_p, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The built entry points, typed: (tcf_planar_mbconv of csrc/planar.cu,
-    tcf_planar_chain of csrc/planar_chain.cu)."""
+    """The built entry points of csrc/planar_chain.cu, typed: (tcf_planar_block,
+    the one-block kernel; tcf_planar_chain)."""
     from tpucenterface_torch.kernels import build
 
-    one, chain = build.load("planar").tcf_planar_mbconv, build.load("planar_chain").tcf_planar_chain
-    # x, out, pointers[6], dims[4], B, H, W, Wp, relu6, stream
-    one.argtypes = [_P] * 4 + [_I32] * 5 + [_P]
+    lib = build.load("planar_chain")
+    one, chain = lib.tcf_planar_block, lib.tcf_planar_chain
+    # x, out, packed, packed bytes, table[10], B, H, W, Wp, relu6, producers, consumers, pmx, pnx,
+    # streamed, chunk buffers, smem, grid, stream
+    one.argtypes = [_P] * 3 + [ctypes.c_longlong, _P] + [_I32] * 13 + [_P]
     # x, out, scratch0, scratch1, packed, packed bytes, table[10 n], n, B, H, W, Wp, relu6,
     # producers, consumers, pmx, pnx, smem, grid, stream
     chain.argtypes = [_P] * 5 + [ctypes.c_longlong, _P] + [_I32] * 12 + [_P]
@@ -611,53 +799,8 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-class PackedBlocks(NamedTuple):
-    """Blocks' weights as the one-block kernel (B4a) reads them, on one
-    device: w1 (Ce, Cin) and w2 (Cout, Ce) in bfloat16, wd (Ce, 9) with tap dy*3+dx, b1, bd, b2 in
-    float32; six pointers and (Cin, Ce, Cout, skip) per block in host arrays."""
-
-    tensors: Tuple[Optional[torch.Tensor], ...]   # keeps the device memory alive
-    pointers: Any                                  # ctypes c_void_p[6 n]
-    dims: Any                                      # ctypes c_int[4 n]
-    shapes: Tuple[_Shapes, ...]
-
-
-def pack_planar_blocks(blocks: Sequence[Mapping[str, Any]], cin: int, device) -> PackedBlocks:
-    """Check a chain of blocks ({w1, b1, wd, bd, w2, b2, skip}, tensors or
-    numpy arrays) that starts at `cin` channels and lay its weights out for
-    the kernels on `device`. A caller that runs the same blocks again packs
-    once; the wrappers pack what they are given unpacked at every call."""
-    device = torch.device(device)
-    tensors: List[Optional[torch.Tensor]] = []
-    shapes: List[_Shapes] = []
-    dims: List[int] = []
-    c = cin
-    for blk in blocks:
-        w1, b1, wd, bd, w2, b2, skip = (
-            torch.as_tensor(a) if a is not None and not isinstance(a, bool) else a for a in _block_tuple(blk)
-        )
-        sh = _block_shapes(c, w1, b1, wd, bd, w2, b2, skip)
-        if sh.cin > MAX_CIN:
-            raise ValueError(f"the planar kernels take at most {MAX_CIN} input channels a block, got {sh.cin}")
-
-        def on(t, dtype):
-            return t.to(device=device, dtype=dtype).contiguous()
-
-        tensors += [
-            None if w1 is None else on(w1.reshape(sh.cin, sh.ce).t(), torch.bfloat16),
-            None if w1 is None else on(b1.reshape(sh.ce), torch.float32),
-            on(wd.reshape(9, sh.ce).t(), torch.float32),
-            on(bd.reshape(sh.ce), torch.float32),
-            on(w2.reshape(sh.ce, sh.cout).t(), torch.bfloat16),
-            on(b2.reshape(sh.cout), torch.float32),
-        ]
-        shapes.append(sh)
-        dims += [sh.cin, sh.ce, sh.cout, int(skip)]
-        c = sh.cout
-    if not 1 <= len(shapes) <= MAX_CHAIN:
-        raise ValueError(f"a chain has 1 to {MAX_CHAIN} blocks, got {len(shapes)}")
-    pointers = (_P * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
-    return PackedBlocks(tuple(tensors), pointers, (_I32 * len(dims))(*dims), tuple(shapes))
+def _device_index(x: torch.Tensor) -> int:
+    return torch.cuda.current_device() if x.device.index is None else x.device.index
 
 
 def _check_cuda_input(x: torch.Tensor, what: str) -> None:
@@ -669,17 +812,9 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"empty input {tuple(x.shape)}")
 
 
-def _check_packed_for(packed: PackedBlocks, x: torch.Tensor) -> None:
-    if packed.tensors[-1].device != x.device or packed.shapes[0].cin != x.shape[1]:
-        raise ValueError(
-            f"the blocks were packed for {packed.shapes[0].cin} channels on {packed.tensors[-1].device}, "
-            f"x has {x.shape[1]} on {x.device}"
-        )
-
-
 def planar_mbconv(
     x: torch.Tensor,
-    w1: Union[Optional[torch.Tensor], PackedBlocks],
+    w1: Union[Optional[torch.Tensor], PackedChain],
     b1: Optional[torch.Tensor] = None,
     wd: Optional[torch.Tensor] = None,
     bd: Optional[torch.Tensor] = None,
@@ -692,20 +827,22 @@ def planar_mbconv(
     relu6: bool = True,
 ) -> torch.Tensor:
     """One fused inverted-residual block, stride 1, row-padded planar:
-    x (B, Cin, H*Wp) -> (B, Cout, H*Wp) in `x.dtype`, summed in float32.
+    x (B, Cin, H*Wp) -> (B, Cout, H*Wp) in `x.dtype`, summed in float32 and
+    rounded once.
 
     The block is its six weights and `skip`, as in the JAX function, or, in
-    the place of `w1`, the `PackedBlocks` of one block (then `skip` is the
-    packed one's). CUDA tensors launch `tcf_planar_mbconv` of csrc/planar.cu
-    (bfloat16 input, Cin <= MAX_CIN); CPU tensors take `planar_mbconv_plain`.
-    A skip needs an expand, as in the JAX function. `planar_mbconv.launches`
-    counts kernel launches. No `interpret` argument: see the module docstring.
+    the place of `w1`, its `PackedChain` of one block (`pack_planar_chain`;
+    then `skip` is the packed one's). CUDA tensors launch `tcf_planar_block`
+    of csrc/planar_chain.cu with `plan_planar_mbconv`'s plan (bfloat16 input,
+    Cin <= MAX_CIN); CPU tensors take `planar_mbconv_plain`. A skip needs an
+    expand, as in the JAX function. `planar_mbconv.launches` counts kernel
+    launches. No `interpret` argument: see the module docstring.
     """
     wp = _check_planar(x, H, W)
-    packed = w1 if isinstance(w1, PackedBlocks) else None
+    packed = w1 if isinstance(w1, PackedChain) else None
     if packed is None:
         if wd is None or bd is None or w2 is None or b2 is None or skip is None:
-            raise TypeError("planar_mbconv takes w1, b1, wd, bd, w2, b2 and skip, or the PackedBlocks of one block")
+            raise TypeError("planar_mbconv takes w1, b1, wd, bd, w2, b2 and skip, or the PackedChain of one block")
         if skip and w1 is None:
             raise ValueError("a skip without an expand is not supported")
     if x.device.type == "cpu":
@@ -717,22 +854,41 @@ def planar_mbconv(
     _check_cuda_input(x, "planar block")
     if packed is None:
         blk = {"w1": w1, "b1": b1, "wd": wd, "bd": bd, "w2": w2, "b2": b2, "skip": skip}
-        packed = pack_planar_blocks([blk], x.shape[1], x.device)
-    _check_packed_for(packed, x)
-    if len(packed.shapes) != 1 or (packed.dims[3] and packed.tensors[0] is None):
-        raise ValueError("planar_mbconv takes one block, and no skip without an expand")
-    out = torch.empty((x.shape[0], packed.shapes[0].cout, H * wp), dtype=torch.float32, device=x.device)
+        packed = pack_planar_chain([blk], x.shape[1], x.device)
+    if packed.device != x.device or packed.shapes[0].cin != x.shape[1]:
+        raise ValueError(f"the block was packed for {packed.shapes[0].cin} channels on {packed.device}, "
+                         f"x has {x.shape[1]} on {x.device}")
+    if len(packed.shapes) != 1:
+        raise ValueError(f"planar_mbconv takes one block, got a PackedChain of {len(packed.shapes)}")
+    b = x.shape[0]
+    plan = plan_planar_mbconv(packed.shapes[0], b, H, W, _num_sms(_device_index(x)), skip=packed.skips[0])
+    out = torch.empty((b, packed.shapes[0].cout, H * wp), dtype=torch.bfloat16, device=x.device)
+    launch_planar_mbconv(x, packed, plan, out, H=H, W=W, relu6=relu6)
+    planar_mbconv.launches += 1
+    return out
+
+
+def launch_planar_mbconv(x, packed: PackedChain, plan: OneBlockPlan, out, *, H: int, W: int,
+                         relu6: bool = True) -> None:
+    """Launch the one-block kernel (`tcf_planar_block`) with `plan` into
+    `out`, on a block and an input that `planar_mbconv` has checked
+    (`kernels/sweep_b4a.py` times every plan of `one_block_plans` through
+    it); raises if the kernel refuses the plan or fails to launch. Counts
+    nothing."""
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("the one-block kernel reads x by tensor copies: x and out must start on 16 bytes")
+    s, skip = packed.shapes[0], packed.skips[0]
+    table = [s.cin, s.ce, s.cout, int(skip), int(s.expand), CHAIN_CK, plan.tile_h, plan.tile_w, plan.pm, plan.pn]
+    warps, consumers, pmx, pnx, streamed = plan.variant
     fn, _ = _kernels()
     with torch.cuda.device(x.device):
         rc = fn(
-            x.data_ptr(), out.data_ptr(), packed.pointers, packed.dims,
-            x.shape[0], H, W, wp, int(relu6),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), out.data_ptr(), packed.data.data_ptr(), packed.data.numel(), (_I32 * 10)(*table),
+            x.shape[0], H, W, padded_width(H, W), int(relu6), warps, consumers, pmx, pnx, int(streamed),
+            plan.chunk_buffers, plan.smem_bytes, plan.grid, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"planar block kernel launch failed with CUDA error {rc}")
-    planar_mbconv.launches += 1
-    return out.to(x.dtype)
 
 
 planar_mbconv.launches = 0
@@ -759,20 +915,18 @@ def planar_mbconv_chain(
     """
     wp = _check_planar(x, H, W)
     if x.device.type == "cpu":
-        if isinstance(blocks, (PackedBlocks, PackedChain)):
+        if isinstance(blocks, PackedChain):
             raise ValueError("packed blocks are for the kernel; pass the blocks' dicts on the CPU")
         return planar_mbconv_chain_plain(x, blocks, H=H, W=W, relu6=relu6)
     if x.device.type != "cuda":
         raise ValueError(f"planar_mbconv_chain runs on cuda or cpu, not {x.device}")
-    if isinstance(blocks, PackedBlocks):
-        raise TypeError("the chain kernel takes the blocks' dicts or a PackedChain (pack_planar_chain)")
     _check_cuda_input(x, "planar chain")
     packed = blocks if isinstance(blocks, PackedChain) else pack_planar_chain(blocks, x.shape[1], x.device)
     if packed.device != x.device or packed.shapes[0].cin != x.shape[1]:
         raise ValueError(f"the chain was packed for {packed.shapes[0].cin} channels on {packed.device}, "
                          f"x has {x.shape[1]} on {x.device}")
     b = x.shape[0]
-    plan = plan_planar_chain(packed.shapes, b, H, W, _num_sms(torch.cuda.current_device() if x.device.index is None else x.device.index))
+    plan = plan_planar_chain(packed.shapes, b, H, W, _num_sms(_device_index(x)))
     out = torch.empty((b, packed.shapes[-1].cout, H * wp), dtype=torch.bfloat16, device=x.device)
     launch_planar_chain(x, packed, plan, out, H=H, W=W, relu6=relu6)
     planar_mbconv_chain.launches += 1
