@@ -359,6 +359,25 @@ B7_KERNEL_SHAPES = (
     ("ties 2x40x40 96->576->96", (2, 40, 40, 96, 576, 96), True, True),
     ("ties 2x20x20 160->960->160", (2, 20, 20, 160, 960, 160), True, True),
 )
+# B6's kernel phase beyond the flagship's blocks, each held bit-equal to the
+# plain version on the planner's plan (name, (B, H, W, Cin, Cmid, Cout),
+# tie-heavy): ragged and odd maps, a 1x1 map, ties, Cmid off the chunk width,
+# Cin 16 on an odd map (the expand's K-16 step), the output W one past the
+# planner's tile side, Cout 160 at bs1 on a 20x20 output, and Cin 48 and 136
+# (the large preset's blocks 6 and 13: K-32 steps, then one of K 16).
+# tests/test_torch_int8_block_s2.py plans every one of them on the CPU.
+B6_KERNEL_SHAPES = (
+    ("ragged 2x50x74 16->96->24", (2, 50, 74, 16, 96, 24), False),
+    ("odd 3x33x19 96->576->160", (3, 33, 19, 96, 576, 160), False),
+    ("1x1 map 8->40->8", (2, 1, 1, 8, 40, 8), False),
+    ("ties 2x64x64 24->144->32", (2, 64, 64, 24, 144, 32), True),
+    ("Cmid 200, 2x40x40 64->200->64", (2, 40, 40, 64, 200, 64), False),
+    ("Cin 16 on an odd map, 2x37x21 16->96->24", (2, 37, 21, 16, 96, 24), False),
+    ("W one past 16, 32x64x66 16->96->24", (32, 64, 66, 16, 96, 24), False),
+    ("bs1 20x20 output 96->576->160", (1, 40, 40, 96, 576, 160), False),
+    ("K 32 then K 16, Cin 48, 2x80x80 48->288->88", (2, 80, 80, 48, 288, 88), False),
+    ("K 32 then K 16, Cin 136, 2x40x40 136->816->224", (2, 40, 40, 136, 816, 224), False),
+)
 QUANT_CALIB_SEED, QUANT_CALIB_FRAMES = 21, 8
 # The quantized forward against the bf16 module forward on the same card, at
 # bs32 and bs128 @ 640: int8 activations move a weak peak or a score by more
@@ -1161,8 +1180,8 @@ def quant_kernel_inputs(eng, x):
     the normalized batch `x`: B5 at block 0's project (its int8 depthwise
     output, planar) requantized to block 1's expand scale; B6 at each
     stride-2 block (its bf16 input quantized at its expand scale, NHWC); B7
-    at each stride-1 residual block (its bf16 input). Also the NHWC inputs
-    the library route times take."""
+    at each stride-1 residual block (its bf16 input); B6's and B7's operands
+    also packed. Also the NHWC inputs the library route times take."""
     from tpucenterface_torch.ops.int8_block import nhwc_to_planar, pack_int8_block_s1
     from tpucenterface_torch.weights.convert import int8_block_args, int8_conv_args
 
@@ -1183,7 +1202,8 @@ def quant_kernel_inputs(eng, x):
         for i in QUANT_S2_BLOCKS:
             sx = torch.tensor(eng.input_scale(f"b{i}.expand"), device=dev)
             xq = torch.round(ys[i].float() / sx).clamp_(-127, 127).to(torch.int8)
-            b6[i] = (xq, on(int8_block_args(eng, i)))
+            a = on(int8_block_args(eng, i))
+            b6[i] = (xq, a, pack_int8_block_s1(**a))
     return {
         "b5": (nhwc_to_planar(b0_dw), on(int8_conv_args(eng, 0, "b1.expand"))),
         "b5_nhwc": b0_dw,
@@ -1233,7 +1253,7 @@ def phase_kernels_int8(inputs):
     {kernel: max |err|} (0 or the run fails)."""
     from tpucenterface_torch.ops.int8_block import (
         fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2, pack_int8_block_s1,
-        plan_int8_block_s1,
+        plan_int8_block_s1, plan_int8_block_s2,
     )
     from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
 
@@ -1241,8 +1261,10 @@ def phase_kernels_int8(inputs):
     dev = x.device
     _check_bit_equal("int8_conv1x1 block 0 project, requantized to b1.expand, bs32@640",
                      int8_conv1x1(x, **a), conv1x1_int8_plain(x, **a))
-    for i, (x, a) in inputs["b6"].items():
-        _check_bit_equal(f"int8_block_s2 block {i} bs32@640", int8_block_s2(x, **a), fused_block_int8_plain(x, **a))
+    for i, (x, a, packed) in inputs["b6"].items():
+        plan = plan_int8_block_s2(*x.shape, packed.cmid, packed.cout)
+        _check_bit_equal(f"int8_block_s2 block {i} bs32@640 ({plan.describe()})", int8_block_s2(x, packed),
+                         fused_block_int8_plain(x, **a))
     for i, (x, a, packed) in inputs["b7"].items():
         _check_bit_equal(f"int8_block_s1 block {i} bs32@640", int8_block_s1(x, a["inv_se"], packed),
                          fused_block_s1_plain(x, **a))
@@ -1258,14 +1280,13 @@ def phase_kernels_int8(inputs):
         else:
             sc, bi = (torch.rand(cout, generator=gen) * 1e-3).to(dev), (torch.rand(cout, generator=gen) * 4 - 2).to(dev)
         _check_bit_equal(f"int8_conv1x1 {what}", int8_conv1x1(x, w, sc, bi), conv1x1_int8_plain(x, w, sc, bi))
-    for what, (b, h, w, cin, cmid, cout), tie in (("ragged 2x50x74 16->96->24", (2, 50, 74, 16, 96, 24), False),
-                                                  ("odd 3x33x19 96->576->160", (3, 33, 19, 96, 576, 160), False),
-                                                  ("1x1 map 8->40->8", (2, 1, 1, 8, 40, 8), False),
-                                                  ("ties 2x64x64 24->144->32", (2, 64, 64, 24, 144, 32), True)):
+    for what, (b, h, w, cin, cmid, cout), tie in B6_KERNEL_SHAPES:
         ops = _int8_block_ops(gen, cin, cmid, cout, dev, tie)
         lo, hi = (-3, 4) if tie else (-127, 128)
         x = torch.randint(lo, hi, (b, h, w, cin), generator=gen, dtype=torch.int8).to(dev)
-        _check_bit_equal(f"int8_block_s2 {what}", int8_block_s2(x, **ops), fused_block_int8_plain(x, **ops))
+        plan = plan_int8_block_s2(b, h, w, cin, cmid, cout)
+        _check_bit_equal(f"int8_block_s2 {what} ({plan.describe()})", int8_block_s2(x, pack_int8_block_s1(**ops)),
+                         fused_block_int8_plain(x, **ops))
     for what, (b, h, w, cin, cmid, cout), tie, residual in B7_KERNEL_SHAPES:
         ops = _int8_block_ops(gen, cin, cmid, cout, dev, tie)
         if tie:  # odd integers times 0.5
@@ -3612,7 +3633,9 @@ def times_int8(inputs, eng):
     depthwise sums and elementwise epilogues; for a block it starts from the
     bf16 input and ends at the bf16 output, as the engine does). B6's and
     B7's totals are over the blocks of one forward (four and ten)."""
-    from tpucenterface_torch.ops.int8_block import fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2
+    from tpucenterface_torch.ops.int8_block import (
+        fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2, plan_int8_block_s2,
+    )
     from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
 
     out = {}
@@ -3632,16 +3655,20 @@ def times_int8(inputs, eng):
         }
     b7 = {i: (x, a, lambda x=x, a=a, packed=packed: int8_block_s1(x, a["inv_se"], packed))
           for i, (x, a, packed) in inputs["b7"].items()}
-    b6 = {i: (x, a, lambda x=x, a=a: int8_block_s2(x, **a)) for i, (x, a) in inputs["b6"].items()}
+    b6 = {i: (x, a, lambda x=x, packed=packed: int8_block_s2(x, packed)) for i, (x, a, packed) in inputs["b6"].items()}
     for name, runs, plain, stride in (("int8_block_s2", b6, fused_block_int8_plain, 2),
                                       ("int8_block_s1", b7, fused_block_s1_plain, 1)):
         shapes = []
         for i, (x, a, kernel) in runs.items():
             bound_ms, bound_by = _int8_block_bound(x, a, stride)
             y = inputs["ys"][i]
+            cmid, cout = a["we"].shape[0], a["wp"].shape[0]
+            # B6's plan and device time a call (calls back to back), beside the one-call time
+            extra = {} if stride == 1 else {"plan": plan_int8_block_s2(*x.shape, cmid, cout).describe(),
+                                            "device_ms": back_to_back_ms(kernel)}
             with torch.inference_mode():
                 shapes.append({
-                    "block": i, "x": list(x.shape), "cmid": a["we"].shape[0], "cout": a["wp"].shape[0],
+                    "block": i, "x": list(x.shape), "cmid": cmid, "cout": cout, **extra,
                     "ms": cuda_ms(kernel, iters=20),
                     "plain_ms": cuda_ms(lambda: plain(x, **a), iters=5, warmup=1),
                     "library_ms": cuda_ms(lambda: eng.run_block(i, y), iters=20),

@@ -13,7 +13,7 @@ the port against the JAX package.
 - tie-heavy operands (scales of powers of two and small integers, so scaled
   values land on .5) pin round half to even;
 - the NHWC and JAX-layout entry points of each plain version agree, and the
-  wrappers take the plain versions for CPU tensors;
+  wrappers take the plain versions for CPU tensors (on packed operands);
 - `quant.int8_ops` against int64 numpy sums, padding cases included;
 - B7's launch plan (`plan_int8_block_s1`) covers every output position once
   and splits the project over the warps, within the card's limits, at the
@@ -191,7 +191,7 @@ def test_b6_plain_matches_pallas_kernel_and_ref(tie):
     assert nhwc.shape == (B6_B, B6_HW_OUT, B6_HW_OUT, B6_COUT)
     np.testing.assert_array_equal(nhwc_to_planar(nhwc).numpy(), ref)
     before = int8_block_s2.launches
-    assert torch.equal(int8_block_s2(_t(x), *ops), nhwc)
+    assert torch.equal(int8_block_s2(_t(x), pack_int8_block_s1(*ops)), nhwc)
     assert int8_block_s2.launches == before
     if tie:
         assert (got == 127).any() and (got != 127).any()
@@ -284,7 +284,7 @@ def test_block_wrappers_check_their_operands():
     with pytest.raises(TypeError, match="bf16"):
         int8_block_s1(xb.float(), inv_se, packed)
     with pytest.raises(TypeError, match="int8"):
-        int8_block_s2(xb, *ops)
+        int8_block_s2(xb, packed)
     bad = list(ops)
     bad[1] = bad[1][:5]
     with pytest.raises(ValueError, match="e_scale"):

@@ -1,7 +1,7 @@
 """The int8 MobileNetV2 block in one kernel: the CUDA kernels
 `csrc/int8_block.cu` (stride 2, B6) and `csrc/int8_block_s1.cu` (stride 1,
-B7), their plain versions, B7's launch plan and packed operands, and the JAX
-layout's helpers.
+B7), their plain versions, their launch plans, their packed operands, and the
+JAX layout's helpers.
 
 Replaces the TPU kernels of `tpucenterface/bench/probe_fused_block.py`:
 - `make_fused_block_kernel` (B6): int8 in, stride-2 block, int8 out;
@@ -33,14 +33,15 @@ and their halo'd tiles directly. The plain versions take NHWC
 (`*_planar`), so the CPU tests hold them to the JAX functions; weights and
 vectors take the JAX layout in both ((C,) or (C, 1) vectors).
 
-B7 takes its operands packed once (`pack_int8_block_s1`: chunk-major, padded,
-16-byte aligned, the depthwise taps of a row in one word) and a launch plan
-that `plan_int8_block_s1` fits to the map (the tile, the chunk width, the
-warps and the project's split over them); `unpack_int8_block_s1` gives the
-JAX-layout operands back. B7 runs on the quantized engine's path
-(`QuantEngine(fused_blocks=True)`); B6 is on no path: its int8 output cannot
-feed the residual block after each stride-2 block, which needs the bf16
-value as its skip input.
+Both kernels take their operands packed once (`pack_int8_block_s1`:
+chunk-major, padded, 16-byte aligned, the depthwise taps of a row in one
+word; the layout does not depend on the stride) and a launch plan fitted to
+the map (`plan_int8_block_s1`, `plan_int8_block_s2`: the output tile, the
+chunk width, the warps and the project's split over them);
+`unpack_int8_block_s1` gives the JAX-layout operands back. B7 runs on the
+quantized engine's path (`QuantEngine(fused_blocks=True)`); B6 is on no path:
+its int8 output cannot feed the residual block after each stride-2 block,
+which needs the bf16 value as its skip input.
 """
 
 from __future__ import annotations
@@ -181,7 +182,8 @@ def fused_block_s1_plain_planar(x_planar, inv_se, *operands, hw: int, residual: 
 
 
 # ------------------------------------------------------------------------- #
-# B7's launch plan and packed operands (csrc/int8_block_s1.cu)
+# the launch plans of B7 (csrc/int8_block_s1.cu) and B6 (csrc/int8_block.cu),
+# and their packed operands
 # ------------------------------------------------------------------------- #
 
 MAX_SMEM = 232448   # bytes of shared memory a block may use on sm_90
@@ -208,8 +210,8 @@ def s1_chunk_width(cmid: int) -> int:
 
 @dataclass(frozen=True)
 class S1Layout:
-    """Byte layout of one chunk of B7's packed operands, which is also that of
-    its shared-memory buffer: we [CK][XS] | wp [Cout][DSS] | taps [3][CK] u32 |
+    """Byte layout of one chunk of the packed operands of B7 and B6, which is
+    also that of their shared-memory buffer: we [CK][XS] | wp [Cout][DSS] | taps [3][CK] u32 |
     vec [6][CK] f32."""
 
     cin: int
@@ -269,8 +271,8 @@ def s1_smem_bytes(tile_h: int, tile_w: int, lay: S1Layout) -> int:
 
 
 @dataclass(frozen=True)
-class S1Plan:
-    """One launch of B7: the output tile (rows, columns), the chunk width,
+class Int8BlockPlan:
+    """One launch of B7 or B6: the output tile (rows, columns), the chunk width,
     the warps of a block, each warp's project rectangle (PM M tiles by PN N
     tiles), the dynamic shared memory and the grid (one block a tile of one
     image)."""
@@ -283,6 +285,10 @@ class S1Plan:
     pn: int
     smem_bytes: int
     grid: Tuple[int, int, int]
+
+    def describe(self) -> str:
+        return (f"{self.tile_h}x{self.tile_w} tile, CK {self.ck}, {self.warps} warps, {self.pm}x{self.pn} "
+                f"rectangles, {self.smem_bytes} B shared memory, grid {self.grid[0]}")
 
 
 def s1_plans(b: int, h: int, w: int, cin: int, cmid: int, cout: int):
@@ -301,7 +307,7 @@ def s1_plans(b: int, h: int, w: int, cin: int, cmid: int, cout: int):
         mt, nt = -(-(th * tw) // 16), cout // 8
         for warps, pm, pn in S1_VARIANTS:
             if -(-mt // pm) * -(-nt // pn) <= warps:
-                yield S1Plan(th, tw, lay.ck, warps, pm, pn, smem, (b * -(-h // th) * -(-w // tw), 1, 1))
+                yield Int8BlockPlan(th, tw, lay.ck, warps, pm, pn, smem, (b * -(-h // th) * -(-w // tw), 1, 1))
 
 
 def _s1_cost(b, h, w, lay, plan):
@@ -322,7 +328,7 @@ def _s1_cost(b, h, w, lay, plan):
 
 
 @functools.lru_cache(maxsize=256)
-def plan_int8_block_s1(b: int, h: int, w: int, cin: int, cmid: int, cout: int) -> S1Plan:
+def plan_int8_block_s1(b: int, h: int, w: int, cin: int, cmid: int, cout: int) -> Int8BlockPlan:
     """B7's launch plan for x (b, h, w, cin) and (cmid, cout): of `s1_plans`,
     the one `_s1_cost` finds cheapest (few halo positions and little ragged
     waste for the outputs, enough blocks to keep the SMs busy). Raises
@@ -334,10 +340,103 @@ def plan_int8_block_s1(b: int, h: int, w: int, cin: int, cmid: int, cout: int) -
     return min(plans, key=lambda plan: _s1_cost(b, h, w, lay, plan))
 
 
+SM_SMEM = 233472     # bytes of shared memory an SM holds on sm_90 (1,024 of them reserved a block)
+# B6's (warps, PM, PN) variants (csrc/int8_block.cu, `dispatch`) and the blocks
+# an SM holds of each at its launch bounds: B7's, and 8 warps of 2 x 3 mma
+# tiles each, which hold fewer registers than 2 x 4 where Cout is 24
+S2_BLOCKS_PER_SM = {(8, 2, 3): 3, **S1_BLOCKS_PER_SM}
+S2_VARIANTS = tuple(S2_BLOCKS_PER_SM)
+S2_MAX_CIN = 248     # the expand's int32 sums stay under 2^22, which B6 turns into floats exactly
+# B6's output tiles (rows, columns), each cut to the output map
+S2_TILES = ((16, 16), (8, 32), (16, 8), (10, 20), (8, 16), (10, 10), (8, 8), (5, 10), (4, 16), (4, 8), (4, 4))
+
+
+def s2_smem_bytes(tile_h: int, tile_w: int, lay: S1Layout) -> int:
+    """Dynamic shared memory of a B6 block (csrc/int8_block.cu, `derive`):
+    the halo'd input tile ((2 tile_h + 1) rows of 2 tile_w + 2 positions, the
+    last a pad; each Cin rounded to an odd number of 16 bytes; the staged
+    output tile after the last chunk), the expanded chunk channel-major (its
+    halo rows and slack for up to 15 positions past them, an odd number of
+    words a channel), d position-major, p_scale and p_bias, two chunk
+    buffers."""
+    ih, iwp = 2 * tile_h + 1, 2 * tile_w + 2
+    rw = 8 * -(-tile_w // 4) + 4
+    cs = _round_up(ih * rw + 15 // iwp * rw + 15 % iwp + 1, 4)
+    if (cs // 4) % 2 == 0:
+        cs += 4
+    kpad = _round_up(lay.cin, 16)
+    xsx = kpad if (kpad // 16) % 2 else kpad + 16
+    tile = _round_up(max(ih * iwp * xsx, tile_h * _round_up(tile_w * lay.cout, 16)), 16)
+    mt = -(-(tile_h * tile_w) // 16)
+    return tile + _round_up(lay.ck * cs, 16) + mt * 16 * lay.dss + 8 * lay.cout + 2 * lay.chunk_bytes
+
+
+def s2_blocks_per_sm(plan: Int8BlockPlan) -> int:
+    """B6 blocks an SM holds: its launch bounds' count, or fewer where the
+    shared memory binds."""
+    return min(S2_BLOCKS_PER_SM[plan.warps, plan.pm, plan.pn], SM_SMEM // (plan.smem_bytes + 1024))
+
+
+def s2_plans(b: int, h: int, w: int, cin: int, cmid: int, cout: int):
+    """Every launch plan of B6 for x (b, h, w, cin) and (cmid, cout) that
+    fits: each tile of S2_TILES (cut to the output map) with each variant of
+    S2_VARIANTS whose project rectangles cover the tile's outputs, within
+    MAX_SMEM. Raises ValueError on shapes the kernel does not take."""
+    if min(b, h, w, cmid) < 1 or cin < 8 or cin % 8 or cin > S2_MAX_CIN or cout < 8 or cout % 8:
+        raise ValueError(f"B6 takes Cin and Cout multiples of 8, Cin at most {S2_MAX_CIN}, and a non-empty map, "
+                         f"got {(b, h, w, cin, cmid, cout)}")
+    lay = S1Layout(cin, cmid, cout, s1_chunk_width(cmid))
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    for th, tw in dict.fromkeys((min(th, ho), min(tw, wo)) for th, tw in S2_TILES):
+        smem = s2_smem_bytes(th, tw, lay)
+        if smem > MAX_SMEM:
+            continue
+        mt, nt = -(-(th * tw) // 16), cout // 8
+        for warps, pm, pn in S2_VARIANTS:
+            if -(-mt // pm) * -(-nt // pn) <= warps:
+                yield Int8BlockPlan(th, tw, lay.ck, warps, pm, pn, smem, (b * -(-ho // th) * -(-wo // tw), 1, 1))
+
+
+S2_HIDING_WARPS = 20   # resident warps an SM needs to run B6 at full rate (fitted)
+
+
+def _s2_cost(lay, plan):
+    """Estimated device milliseconds of a B6 plan. A chunk of a block costs
+    its expand's mma over the halo (16 positions x 16 channels x 32 bytes of
+    K a unit), the expand's requantizations (32 values a unit), the
+    depthwise's units of four outputs by four channels (32 a unit) and a
+    fixed share for its barriers; a block adds a share for each of its tile's
+    rows (the halo rows it copies in, the output rows it stores) and a fixed
+    one. An SM runs its share of the blocks, at full rate once
+    S2_HIDING_WARPS warps are resident. The constants are fitted to
+    `kernels/sweep_b6.py` on the default model's four stride-2 blocks at
+    batch 32 (PERF.md §6)."""
+    th, tw = plan.tile_h, plan.tile_w
+    npos = _round_up((2 * th + 1) * (2 * tw + 2), 16)
+    ksteps = _round_up(lay.cin, 16) / 32
+    per_chunk = (9.1e-6 * (npos / 16) * (lay.ck / 16) * ksteps + 1.6e-6 * npos * lay.ck / 32
+                 + 7.7e-5 * (lay.ck / 4) * th * -(-tw // 4) / 32 + 4.4e-4)
+    per_block = lay.nchunks * per_chunk + 1.9e-5 * (3 * th + 1) + 1.0e-3
+    per_sm = -(-plan.grid[0] // NUM_SMS)
+    resident = min(per_sm, s2_blocks_per_sm(plan)) * plan.warps
+    return per_block * per_sm * S2_HIDING_WARPS / min(resident, S2_HIDING_WARPS)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_int8_block_s2(b: int, h: int, w: int, cin: int, cmid: int, cout: int) -> Int8BlockPlan:
+    """B6's launch plan for x (b, h, w, cin) and (cmid, cout): of `s2_plans`,
+    the one `_s2_cost` finds cheapest. Raises ValueError if none fits."""
+    lay = S1Layout(cin, cmid, cout, s1_chunk_width(cmid))
+    plans = list(s2_plans(b, h, w, cin, cmid, cout))
+    if not plans:
+        raise ValueError(f"no B6 plan fits {(b, h, w, cin, cmid, cout)}")
+    return min(plans, key=lambda plan: _s2_cost(lay, plan))
+
+
 @dataclass(frozen=True)
 class PackedInt8BlockS1:
-    """B7's operands in the kernel's layout (`pack_int8_block_s1`): `data`
-    holds S1Layout(cin, cmid, cout, ck).nbytes bytes (uint8, one tensor)."""
+    """The operands of B7 or B6 in the kernels' layout (`pack_int8_block_s1`):
+    `data` holds S1Layout(cin, cmid, cout, ck).nbytes bytes (uint8, one tensor)."""
 
     data: torch.Tensor
     cin: int
@@ -360,8 +459,8 @@ def _f32_bytes(t: torch.Tensor) -> torch.Tensor:
 
 def pack_int8_block_s1(we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale,
                        p_bias) -> PackedInt8BlockS1:
-    """Lay B7's eleven JAX-layout operands out once, on their device, in the
-    kernel's layout (S1Layout): chunk by chunk of CK expanded channels,
+    """Lay the eleven JAX-layout operands of B7 or B6 out once, on their
+    device, in the kernels' layout (S1Layout): chunk by chunk of CK expanded channels,
     each chunk the contiguous bytes of its shared-memory buffer: the expand
     weights (CK rows of Cin, zero to XS bytes), the project weights (Cout
     rows of CK, zero to DSS bytes), the depthwise taps of each row dy as one
@@ -371,7 +470,7 @@ def pack_int8_block_s1(we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_in
     cmid, cin = we.shape
     cout = wp.shape[0]
     if cin % 8 or cout % 8:
-        raise ValueError(f"B7 takes Cin and Cout multiples of 8, got {cin}, {cout}")
+        raise ValueError(f"the int8 block kernels take Cin and Cout multiples of 8, got {cin}, {cout}")
     lay = S1Layout(cin, cmid, cout, s1_chunk_width(cmid))
     n, ck, dev = lay.nchunks, lay.ck, we.device
     cpad = n * ck
@@ -431,7 +530,7 @@ def _kernel_s2():
     from tpucenterface_torch.kernels import build
 
     fn = build.load("int8_block").tcf_int8_block
-    fn.argtypes = [_P] * 13 + [_I32] * 6 + [_P]
+    fn.argtypes = [_P, _P, _P] + [_I32] * 6 + [_I32] * 7 + [_I64, _P]
     fn.restype = _I32
     return fn
 
@@ -459,39 +558,47 @@ def _check_x(x: torch.Tensor) -> None:
         raise ValueError(f"empty input {tuple(x.shape)}")
 
 
-def int8_block_s2(x, we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale, p_bias):
-    """B6: the stride-2 int8 block, NHWC int8 -> NHWC int8 (see the module
-    docstring). CUDA tensors launch `csrc/int8_block.cu`; CPU tensors take
-    the plain version. `int8_block_s2.launches` counts kernel launches."""
-    ops = (we, e_scale, e_bias, e_inv_sdw, wd, d_scale, d_bias, d_inv_sproj, wp, p_scale, p_bias)
-    if x.device.type == "cpu":
-        return fused_block_int8_plain(x, *ops)
-    _device_check(x, "int8_block_s2")
+def int8_block_s2(x: torch.Tensor, packed: PackedInt8BlockS1) -> torch.Tensor:
+    """B6: the stride-2 block, NHWC int8 (B, H, W, Cin) -> NHWC int8 (B, Ho,
+    Wo, Cout), Ho = (H - 1) // 2 + 1 (see the module docstring), on operands
+    packed by `pack_int8_block_s1`. CUDA tensors launch `csrc/int8_block.cu`
+    with `plan_int8_block_s2`'s plan; CPU tensors take the plain version on
+    the unpacked operands. Both raise on what the kernel does not take
+    (dtype, shape, a non-contiguous or misaligned x). `int8_block_s2.launches`
+    counts kernel launches."""
+    if not isinstance(packed, PackedInt8BlockS1):
+        raise TypeError(f"packed must come from pack_int8_block_s1, got {type(packed).__name__}")
+    if x.device.type != "cpu":
+        _device_check(x, "int8_block_s2")
     if x.dtype != torch.int8 or x.dim() != 4:
         raise TypeError(f"x must be (B, H, W, Cin) int8, got {x.dtype} {tuple(x.shape)}")
-    we, wd, wp, v = _operands(*ops)
     _check_x(x)
     b, h, w, cin = x.shape
-    cmid, cout = we.shape[0], wp.shape[0]
-    if we.shape[1] != cin or cin % 8 or cout % 8:
-        raise ValueError(f"we must be (Cmid, {cin}); the kernel takes Cin and Cout multiples of 8, got {cin}, {cout}")
-    if any(t.device != x.device for t in (we, wd, wp, *v.values())):
-        raise ValueError("all operands must be on x's device")
-    # held in locals until the launch has been enqueued
-    wdi, wec, wpc = wd.to(torch.int8).contiguous(), we.contiguous(), wp.contiguous()
-    out = torch.empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, cout), dtype=torch.int8, device=x.device)
-    fn = _kernel_s2()
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), wec.data_ptr(), v["e_scale"].data_ptr(), v["e_bias"].data_ptr(),
-            v["e_inv_sdw"].data_ptr(), wdi.data_ptr(), v["d_scale"].data_ptr(), v["d_bias"].data_ptr(),
-            v["d_inv_sproj"].data_ptr(), wpc.data_ptr(), v["p_scale"].data_ptr(), v["p_bias"].data_ptr(),
-            out.data_ptr(), b, h, w, cin, cmid, cout, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"int8 block kernel launch failed with CUDA error {rc}")
+    if cin != packed.cin:
+        raise ValueError(f"x has {cin} channels, the packed operands {packed.cin}")
+    if x.device.type == "cpu":
+        return fused_block_int8_plain(x, **unpack_int8_block_s1(packed))
+    if packed.device != x.device or packed.data.data_ptr() % 16:
+        raise ValueError("the packed operands must be on x's device, 16-byte aligned")
+    out = torch.empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, packed.cout), dtype=torch.int8, device=x.device)
+    launch_int8_block_s2(x, packed, plan_int8_block_s2(b, h, w, cin, packed.cmid, packed.cout), out)
     int8_block_s2.launches += 1
     return out
+
+
+def launch_int8_block_s2(x, packed: PackedInt8BlockS1, plan: Int8BlockPlan, out) -> None:
+    """Launch `csrc/int8_block.cu` with `plan` into `out`, on operands that
+    `int8_block_s2` has checked (`kernels/sweep_b6.py` times every plan of
+    `s2_plans` through it); raises if the kernel refuses the plan or fails to
+    launch. Counts nothing."""
+    with torch.cuda.device(x.device):
+        rc = _kernel_s2()(
+            x.data_ptr(), packed.data.data_ptr(), out.data_ptr(), *x.shape, packed.cmid, packed.cout,
+            plan.tile_h, plan.tile_w, plan.ck, plan.warps, plan.pm, plan.pn, plan.smem_bytes, plan.grid[0],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"B6 kernel launch failed with CUDA error {rc}")
 
 
 def int8_block_s1(x: torch.Tensor, inv_se: Union[float, torch.Tensor], packed: PackedInt8BlockS1,
@@ -525,7 +632,7 @@ def int8_block_s1(x: torch.Tensor, inv_se: Union[float, torch.Tensor], packed: P
     return out
 
 
-def launch_int8_block_s1(x, inv_se, packed: PackedInt8BlockS1, plan: S1Plan, residual: bool, out) -> None:
+def launch_int8_block_s1(x, inv_se, packed: PackedInt8BlockS1, plan: Int8BlockPlan, residual: bool, out) -> None:
     """Launch `csrc/int8_block_s1.cu` with `plan` into `out`, on operands that
     `int8_block_s1` has checked (`kernels/sweep_b7.py` times every plan of
     `s1_plans` through it); raises if the kernel refuses the plan or fails
