@@ -359,6 +359,30 @@ B7_KERNEL_SHAPES = (
     ("ties 2x40x40 96->576->96", (2, 40, 40, 96, 576, 96), True, True),
     ("ties 2x20x20 160->960->160", (2, 20, 20, 160, 960, 160), True, True),
 )
+# B5's kernel phase beyond block 0's project, each held bit-equal to the plain
+# version on the planner's plan (name, (B, Cin, P, Cout), operands: random,
+# ties (small integers, scale and bias 0.5) or extreme (all +-127)): ragged
+# and odd P (byte loads), Cin 960 at Cout 160, ties, Cin 16, 48 and 64, the
+# largest Cin of the conversion-free epilogue and one past it at all +-127,
+# Cout 8, P = 8 and 4 mod 16 (8- and 4-byte loads), bs1, P under one warp
+# step, and a Cin whose weights do not fit in shared memory.
+# tests/test_torch_int8_conv.py plans every one of them on the CPU.
+B5_KERNEL_SHAPES = (
+    ("ragged 3x24x1001 -> 40", (3, 24, 1001, 40), "random"),
+    ("960 -> 160, P 77", (2, 960, 77, 160), "random"),
+    ("ties 2x32x4099 -> 16", (2, 32, 4099, 16), "ties"),
+    ("Cin 16, 2x16x6400 -> 24", (2, 16, 6400, 24), "random"),
+    ("Cin 48, 2x48x1600 -> 32", (2, 48, 1600, 32), "random"),
+    ("Cin 64, 2x64x25600 -> 16", (2, 64, 25600, 16), "random"),
+    ("the magic epilogue's largest Cin, 2x255x1024 -> 16, all +-127", (2, 255, 1024, 16), "extreme"),
+    ("one past the magic epilogue, 2x256x1024 -> 16, all +-127", (2, 256, 1024, 16), "extreme"),
+    ("Cout 8, 2x32x4096 -> 8", (2, 32, 4096, 8), "random"),
+    ("P = 8 mod 16, 2x32x40008 -> 16", (2, 32, 40008, 16), "random"),
+    ("P = 4 mod 16, 2x32x40004 -> 16", (2, 32, 40004, 16), "random"),
+    ("bs1 1x32x102400 -> 16", (1, 32, 102400, 16), "random"),
+    ("P under one step, 2x32x24 -> 16", (2, 32, 24, 16), "random"),
+    ("Cin past shared memory, 1x15000x64 -> 24", (1, 15000, 64, 24), "random"),
+)
 # B6's kernel phase beyond the flagship's blocks, each held bit-equal to the
 # plain version on the planner's plan (name, (B, H, W, Cin, Cmid, Cout),
 # tie-heavy): ragged and odd maps, a 1x1 map, ties, Cmid off the chunk width,
@@ -1237,6 +1261,29 @@ def _int8_block_ops(gen, cin, cmid, cout, dev, tie):
             "p_scale": rand(cout, 2e-4, 1e-4), "p_bias": rand(cout, 0.5)}
 
 
+def _int8_conv_operands(gen, b, cin, p, cout, kind, dev):
+    """x, w, scale and bias of B5 on `dev`: random, tie-heavy (small
+    integers, scale and bias 0.5, so half the values land on .5) or extreme
+    (all +-127, the largest sums at two pixels, scales that keep them off
+    the clip)."""
+    if kind == "ties":
+        x = torch.randint(-3, 4, (b, cin, p), generator=gen, dtype=torch.int8)
+        w = torch.randint(-3, 4, (cout, cin), generator=gen, dtype=torch.int8)
+        sc = bi = torch.full((cout,), 0.5)
+    elif kind == "extreme":   # pixels 0 and 1 at the largest sums, +-127^2 Cin, of channel 0
+        x = (torch.randint(0, 2, (b, cin, p), generator=gen) * 254 - 127).to(torch.int8)
+        w = (torch.randint(0, 2, (cout, cin), generator=gen) * 254 - 127).to(torch.int8)
+        x[:, :, 0], x[:, :, 1] = w[0], -w[0]
+        sc = (0.5 + 0.5 * torch.rand(cout, generator=gen)) / (127 * cin)
+        bi = torch.rand(cout, generator=gen) - 0.5
+    else:
+        x = torch.randint(-127, 128, (b, cin, p), generator=gen, dtype=torch.int8)
+        w = torch.randint(-127, 128, (cout, cin), generator=gen, dtype=torch.int8)
+        sc = torch.rand(cout, generator=gen) * 1e-3 * min(1.0, (32 / cin) ** 0.5)   # most sums off the clip
+        bi = torch.rand(cout, generator=gen) * 4 - 2
+    return x.to(dev), w.to(dev), sc.to(dev), bi.to(dev)
+
+
 def _check_bit_equal(what, got, want):
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
@@ -1255,11 +1302,22 @@ def phase_kernels_int8(inputs):
         fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2, pack_int8_block_s1,
         plan_int8_block_s1, plan_int8_block_s2,
     )
-    from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
+    from tpucenterface_torch.ops.int8_conv import (
+        VARIANT_REGS, conv1x1_int8_plain, int8_conv1x1, plan_int8_conv1x1, variant_attributes,
+    )
 
+    # B5's planner sizes its persistent grid by the registers of each compiled
+    # variant: the card's kernels must hold no more than its table says, and spill nothing
+    for variant, regs in VARIANT_REGS.items():
+        for magic, want in zip((True, False), regs):
+            got, local = variant_attributes(variant, magic)
+            if got > want or local:
+                raise AssertionError(f"[kernels] B5 variant {variant} ({'magic' if magic else 'cvt'}) holds {got} "
+                                     f"registers and {local} B of local memory a thread; the planner counts {want}")
     x, a = inputs["b5"]
     dev = x.device
-    _check_bit_equal("int8_conv1x1 block 0 project, requantized to b1.expand, bs32@640",
+    _check_bit_equal(f"int8_conv1x1 block 0 project, requantized to b1.expand, bs32@640 "
+                     f"({plan_int8_conv1x1(*x.shape, a['w'].shape[0]).describe()})",
                      int8_conv1x1(x, **a), conv1x1_int8_plain(x, **a))
     for i, (x, a, packed) in inputs["b6"].items():
         plan = plan_int8_block_s2(*x.shape, packed.cmid, packed.cout)
@@ -1269,17 +1327,14 @@ def phase_kernels_int8(inputs):
         _check_bit_equal(f"int8_block_s1 block {i} bs32@640", int8_block_s1(x, a["inv_se"], packed),
                          fused_block_s1_plain(x, **a))
     gen = torch.Generator().manual_seed(8642)
-    for what, (b, cin, p, cout), tie in (("ragged 3x24x1001 -> 40", (3, 24, 1001, 40), False),
-                                         ("960 -> 160, P 77", (2, 960, 77, 160), False),
-                                         ("ties 2x32x4099 -> 16", (2, 32, 4099, 16), True)):
-        lo, hi = (-3, 4) if tie else (-127, 128)
-        x = torch.randint(lo, hi, (b, cin, p), generator=gen, dtype=torch.int8).to(dev)
-        w = torch.randint(lo, hi, (cout, cin), generator=gen, dtype=torch.int8).to(dev)
-        if tie:
-            sc = bi = torch.full((cout,), 0.5, device=dev)
-        else:
-            sc, bi = (torch.rand(cout, generator=gen) * 1e-3).to(dev), (torch.rand(cout, generator=gen) * 4 - 2).to(dev)
-        _check_bit_equal(f"int8_conv1x1 {what}", int8_conv1x1(x, w, sc, bi), conv1x1_int8_plain(x, w, sc, bi))
+    # the first three shapes draw from the generator that B6's and B7's shapes
+    # go on from, as they did before the list grew; the others from their own
+    more = torch.Generator().manual_seed(8643)
+    for i, (what, (b, cin, p, cout), kind) in enumerate(B5_KERNEL_SHAPES):
+        x, w, sc, bi = _int8_conv_operands(gen if i < 3 else more, b, cin, p, cout, kind, dev)
+        plan = plan_int8_conv1x1(b, cin, p, cout)
+        _check_bit_equal(f"int8_conv1x1 {what} ({plan.describe()})", int8_conv1x1(x, w, sc, bi),
+                         conv1x1_int8_plain(x, w, sc, bi))
     for what, (b, h, w, cin, cmid, cout), tie in B6_KERNEL_SHAPES:
         ops = _int8_block_ops(gen, cin, cmid, cout, dev, tie)
         lo, hi = (-3, 4) if tie else (-127, 128)
@@ -3636,7 +3691,7 @@ def times_int8(inputs, eng):
     from tpucenterface_torch.ops.int8_block import (
         fused_block_int8_plain, fused_block_s1_plain, int8_block_s1, int8_block_s2, plan_int8_block_s2,
     )
-    from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1
+    from tpucenterface_torch.ops.int8_conv import conv1x1_int8_plain, int8_conv1x1, plan_int8_conv1x1
 
     out = {}
     x, a = inputs["b5"]
@@ -3645,8 +3700,10 @@ def times_int8(inputs, eng):
     bound_ms, bound_by = bound(b * p * (cin + cout) + cout * cin + 8 * cout, [(2 * b * p * cin * cout, INT8_TC_OPS_PER_S)])
     x_nhwc = inputs["b5_nhwc"]
     with torch.inference_mode():
+        # B5's plan and device time a call (calls back to back), beside the one-call time
         out["int8_conv1x1"] = {
-            "block": 0, "x": [b, cin, p], "cout": cout,
+            "block": 0, "x": [b, cin, p], "cout": cout, "plan": plan_int8_conv1x1(b, cin, p, cout).describe(),
+            "device_ms": back_to_back_ms(lambda: int8_conv1x1(x, **a)),
             "ms": cuda_ms(lambda: int8_conv1x1(x, **a), iters=50),
             "plain_ms": cuda_ms(lambda: conv1x1_int8_plain(x, **a), iters=10),
             "library_ms": cuda_ms(lambda: eng._conv("b0.project", "quant", x_nhwc, "none", out_int8_tag="b1.expand"),
