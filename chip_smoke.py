@@ -156,6 +156,23 @@ Phases, in order; any failure raises and the script exits non-zero:
       and metrics all-reduced) each against `make_train_step` from the same
       state under `[train]`'s check 1 bounds; `prefetch_to_device(sharding=)`
       order and device; the group destroyed before the last lines;
+   n. the measurement tools (`[bench]`, `bench/`, `cli/bench_suite.py`),
+      their iteration counts cut as BENCH_* says: `bench_suite` configs 1-4
+      on the fast engine and config 5 (bs256 over `data_mesh()`, its int8
+      variant on the library route) on the module forward over a one-rank
+      NCCL group, with the flagship weights and the fused decode (B2 and
+      B3 launched, no other kernel); `profile_detect_program` at bs128 @
+      640, K = 100 (roofline, sections, the top ten ops and the calls that
+      launched them; `mfu` and `hbm_frac` in [0, 1]; the total within
+      BENCH_TOTAL_RTOL of a CUDA-event time of the same program), and the
+      eval path's flip program at bs64 @ 640 (its top three ops and their
+      launching calls);
+      `roofline_of_fn` of the module forward and of the fast engine at bs32
+      @ 640, their GFLOP within BENCH_GFLOP_RTOL; `profile_forward` at bs32
+      @ 640 (the blocks within BENCH_BLOCKS_RATIO of the whole forward);
+      `sweep_preset` on small, default and large; `slo_sweep` on the module
+      forward (128 a launch, requests of 32, loads 0.5 and 0.95); the
+      phase's seconds;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -171,10 +188,13 @@ checks that the detector finds them. The last two lines are the
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -511,6 +531,20 @@ QFT_MEAN_ATOL = {"quant": 1e-6, "float": 1e-6}
 # ENTRY_PARITY_SIZE on four painted 360x480 scenes.
 ENTRY_SIZE, ENTRY_BATCH, ENTRY_SERVE_IMAGES, ENTRY_SERVE_BATCH = 640, 32, 256, 128
 ENTRY_DEMO_FRAMES, ENTRY_PARITY_SIZE = 32, 320
+
+# The measurement tools' phase (`[bench]`). Cut from the tools' defaults, to
+# fit the run's time (iteration counts only; each cut is printed):
+# `bench_suite` configs 2 and 5 time BENCH_ITERS launches a rate (100);
+# `sweep_preset` BENCH_PRESET_ITERS launches a pass, BENCH_PRESET_PASSES
+# passes (100, 3); `slo_sweep` BENCH_SLO_SECONDS a load point (8). Checks:
+# `profile_detect_program`'s total device ms within BENCH_TOTAL_RTOL of a
+# CUDA-event time of the same program; the module forward's and the fast
+# engine's GFLOP (`roofline_of_fn`) within BENCH_GFLOP_RTOL of each other
+# (each op counted by what it computes: they run the same arithmetic); the
+# blocks of `profile_forward` summed within BENCH_BLOCKS_RATIO times the
+# whole forward either way.
+BENCH_ITERS, BENCH_PRESET_ITERS, BENCH_PRESET_PASSES, BENCH_SLO_SECONDS = 10, 5, 2, 2.0
+BENCH_TOTAL_RTOL, BENCH_GFLOP_RTOL, BENCH_BLOCKS_RATIO = 0.25, 0.01, 2.0
 
 
 def log(msg: str) -> None:
@@ -3449,6 +3483,167 @@ def phase_dp(det, det_fast, smi):
     return launches
 
 
+def _bench_suite(det, det_fast):
+    """`cli/bench_suite.py`'s configs 1-4 on the fast engine and config 5 on
+    the module forward, over a one-rank NCCL group (as `[dp]`), with the
+    flagship's weights and the fused decode; each config's JSON line."""
+    import torch.distributed as dist
+
+    from tpucenterface_torch.cli import bench_suite
+
+    log(f"[bench] cuts: configs 2 and 5 time {BENCH_ITERS} launches a rate (the suite's 100); configs 1, 3 "
+        "and 4 run at the suite's counts (20 calls, 256 TTA images, 60 frames)")
+    runs = ((1, lambda: bench_suite.config1_single_320(det_fast)),
+            (2, lambda: bench_suite.config2_batch640(det_fast, iters=BENCH_ITERS)),
+            (3, lambda: bench_suite.config3_tta(det_fast)),
+            (4, lambda: bench_suite.config4_video(det_fast)))
+    for n, run in runs:
+        t0 = time.perf_counter()
+        out = run()
+        log(f"[bench] config {n} ({time.perf_counter() - t0:.1f} s): " + json.dumps({"config": n, **out}))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        out = bench_suite.config5_dp(det, iters=BENCH_ITERS)
+        log(f"[bench] config 5 ({time.perf_counter() - t0:.1f} s, backend {dist.get_backend()}): "
+            + json.dumps({"config": 5, **out}))
+    finally:
+        dist.destroy_process_group()
+    if out["int8_img_s"] is None:
+        raise AssertionError(f"[bench] config 5: no int8 variant ({out['int8_unavailable']})")
+
+
+def _check_share(what, v):
+    if v is None or not 0.0 <= v <= 1.0:
+        raise AssertionError(f"[bench] {what} = {v}, not a share in [0, 1]")
+
+
+def phase_bench(det, det_fast, smi):
+    """Path n, the measurement tools (`[bench]`, `bench/`, `cli/bench_suite.py`):
+    (1) `bench_suite` configs 1-5 (`_bench_suite`): B2 and B3 launched, no
+    other kernel; (2) `profile_detect_program` at bs128 @ 640, identity, K =
+    100, bf16: roofline, sections, the top ten ops; `mfu` and `hbm_frac` in
+    [0, 1], the total device ms within BENCH_TOTAL_RTOL of the same
+    program's CUDA-event time; then the eval flip program's top three ops
+    at bs64 @ 640 and the calls that launched them; (3) `roofline_of_fn` of the module forward
+    and of the fast engine at bs32 @ 640: GFLOP within BENCH_GFLOP_RTOL;
+    (4) `profile_forward` at bs32 @ 640: the blocks' sum within
+    BENCH_BLOCKS_RATIO of the whole forward; (5) `sweep_preset` on small,
+    default and large; (6) `slo_sweep` on the module forward at 128 a launch,
+    requests of 32, loads 0.5 and 0.95. Returns the launch counts of (1)-(6),
+    set to 0 just before (1) and read just after (6)."""
+    from tpucenterface_torch import Detector, DetectorConfig
+    from tpucenterface_torch.bench.op_profile import capture_trace, kernel_owners, op_profile_table, profile_detect_program
+    from tpucenterface_torch.bench.preset_sweep import sweep_preset
+    from tpucenterface_torch.bench.profile_forward import profile
+    from tpucenterface_torch.bench.roofline import roofline_of_fn
+    from tpucenterface_torch.bench.slo_sweep import slo_sweep
+    from tpucenterface_torch.bench.timing import op_time_ms
+    from tpucenterface_torch.detector import stage_inputs
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    _bench_suite(det, det_fast)
+    suite = read_launches()
+    log(f"[bench] (1) kernel launches of the suite {suite}")
+    if not suite["decode_feats_fused"] or not suite["fused_mbconv"] or any(
+            n for k, n in suite.items() if k not in ("decode_feats_fused", "fused_mbconv")):
+        raise AssertionError(f"[bench] (1) launches {suite}: B2 and B3, and no other kernel")
+
+    # (2) the canonical serving program, profiled; then its CUDA-event time
+    t0 = time.perf_counter()
+    logdir = tempfile.mkdtemp(prefix="tcf_bench_")
+    prof = profile_detect_program(batch=128, size=640, max_dets=100, identity=True, logdir=logdir)
+    owners = kernel_owners(sorted(glob.glob(os.path.join(logdir, "*.json"))))
+    shutil.rmtree(logdir)
+    log(f"[bench] (2) profile_detect_program bs128 @ 640 ({time.perf_counter() - t0:.1f} s): total_ms "
+        f"{prof['total_ms']} img_per_s {prof['img_per_s']} roofline {json.dumps(prof['roofline'])}")
+    log(f"[bench] (2) sections {json.dumps(prof['sections'])}; by category {json.dumps(prof['by_category_ms'])}")
+    for r in prof["top_ops"][:10]:
+        launched_by = owners.get(r["name"], {})
+        log(f"[bench] (2) top op {r['ms_per_iter']:.4f} ms {r['category']}: {r['name'][:110]} "
+            f"({r['gflops_per_iter']:.3f} GFLOP, {r['gbytes_per_iter']:.4f} GB, x{r['occurrences']}; launched by "
+            f"{json.dumps(launched_by)})")
+    _check_share("mfu", prof["roofline"]["mfu"])
+    _check_share("hbm_frac", prof["roofline"]["hbm_frac"])
+    ref = Detector(config=DetectorConfig())  # the same random weights (seed 0)
+    rng = np.random.RandomState(0)
+    fn, fmt = ref._batch_fn_auto(128, (640, 640), 640, identity=True, max_dets=100)
+    im, hw = stage_inputs(fmt, rng.randint(0, 255, (128, 640, 640, 3), np.uint8),
+                          np.full((128, 2), 640, np.int32), ref.device)
+    event_ms = op_time_ms(fn, im, hw, k_pair=(2, 6))
+    log(f"[bench] (2) the same program between CUDA events: {event_ms:.3f} ms a call; profile total "
+        f"{prof['total_ms']} ms ({prof['total_ms'] / event_ms:.3f})")
+    if abs(prof["total_ms"] / event_ms - 1.0) > BENCH_TOTAL_RTOL:
+        raise AssertionError(f"[bench] (2) profile total {prof['total_ms']} ms against {event_ms:.3f} ms")
+    del ref, fn, fmt, im, hw
+    # the eval path's flip program (bs64 @ 640, letterboxed: one forward of
+    # 128 images), profiled for its top ops and the calls that launched them
+    lb_imgs, _, lb_hws = letterboxed_batch(91)
+    flip_in = tuple(torch.from_numpy(np.concatenate([a, a])).cuda() for a in (lb_imgs, lb_hws))
+    logdir = tempfile.mkdtemp(prefix="tcf_bench_")
+    paths = capture_trace(det._batch_flip_fn(64, (640, 640), 640), flip_in, logdir)
+    rows, owners = op_profile_table(paths), kernel_owners(paths)
+    shutil.rmtree(logdir)
+    total = sum(r["ms_per_iter"] for r in rows)
+    for r in rows[:3]:
+        log(f"[bench] (2) eval flip program bs64 @ 640 ({total:.3f} ms a call): top op {r['ms_per_iter']:.4f} ms "
+            f"{r['category']}: {r['name'][:110]} (x{r['occurrences']}; launched by "
+            f"{json.dumps(owners.get(r['name'], {}))})")
+    del flip_in
+
+    # (3) one count of work on two implementations
+    imgs, _ = paint_batch(90, 32, (640, 640))
+    with torch.inference_mode():
+        x = normalize_raw(det, imgs, "cuda")
+    roof = {name: roofline_of_fn(lambda x, d=d: d._forward(x), (x,))
+            for name, d in (("module", det), ("fast", det_fast))}
+    for name, r in roof.items():
+        log(f"[bench] (3) roofline_of_fn {name} forward bs32 @ 640: "
+            + json.dumps({k: v for k, v in r.items() if k != "sections"}) + f" sections {json.dumps(r['sections'])}")
+        _check_share(f"{name} mfu", r["mfu"])
+        _check_share(f"{name} hbm_frac", r["hbm_frac"])
+    gm, gf = roof["module"]["gflops"], roof["fast"]["gflops"]
+    log(f"[bench] (3) GFLOP module {gm} fast {gf}: apart {abs(gm - gf) / gm:.2e} of the module's "
+        f"(bound {BENCH_GFLOP_RTOL})")
+    if not gm or abs(gm - gf) > BENCH_GFLOP_RTOL * gm:
+        raise AssertionError(f"[bench] (3) GFLOP module {gm}, fast engine {gf}")
+
+    # (4) per-section times of the module forward
+    t0 = time.perf_counter()
+    rows = profile(batch=32, size=640)
+    blocks = sum(ms for name, ms in rows.items() if name.startswith("block_"))
+    ratio = blocks / rows["FULL forward"]
+    log(f"[bench] (4) profile_forward bs32 @ 640 ({time.perf_counter() - t0:.1f} s): " + json.dumps(rows)
+        + f"; blocks {blocks:.3f} ms, whole forward {rows['FULL forward']:.3f} ms ({ratio:.3f})")
+    if not 1.0 / BENCH_BLOCKS_RATIO <= ratio <= BENCH_BLOCKS_RATIO:
+        raise AssertionError(f"[bench] (4) the blocks sum to {ratio:.3f} times the whole forward")
+
+    # (5) the width presets
+    log(f"[bench] (5) cuts: sweep_preset {BENCH_PRESET_ITERS} launches a pass, {BENCH_PRESET_PASSES} passes "
+        "(the sweep's 100, 3)")
+    for name in ("small", "default", "large"):
+        t0 = time.perf_counter()
+        out = sweep_preset(name, iters=BENCH_PRESET_ITERS, passes=BENCH_PRESET_PASSES)
+        log(f"[bench] (5) ({time.perf_counter() - t0:.1f} s) " + json.dumps(out))
+        if out["serving_int8_img_s"] is None:
+            raise AssertionError(f"[bench] (5) {name}: no int8 reading ({out['int8_unavailable']})")
+
+    # (6) the latency curve
+    log(f"[bench] (6) cuts: slo_sweep {BENCH_SLO_SECONDS} s a load point (the sweep's 8)")
+    t0 = time.perf_counter()
+    slo = slo_sweep(det, (640, 640), request_bs=32, device_batch=128, fractions=(0.5, 0.95), seconds=BENCH_SLO_SECONDS)
+    log(f"[bench] (6) slo_sweep ({time.perf_counter() - t0:.1f} s): " + json.dumps(slo))
+    if not slo["saturation_img_s"] > 0 or any(not (pt["achieved_requests"] and pt["p99_ms"]) for pt in slo["loaded"]):
+        raise AssertionError(f"[bench] (6) slo_sweep {slo}")
+    launches = read_launches()
+    log(f"[bench] kernel launches {launches}")
+    if any(n for k, n in launches.items() if k not in ("decode_feats_fused", "fused_mbconv")):
+        raise AssertionError(f"[bench] launches {launches}: a kernel that no tool's path runs")
+    log(f"[bench] passed in {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
 def normalize_raw(det, imgs, dev):
     """The identity-path input of `det` for uint8 images at its size."""
     from tpucenterface_torch.preprocess import normalize_images
@@ -3946,7 +4141,8 @@ def main() -> int:
              phase_quant_ft(cfg, smi, quant_dets["b7"]),
              phase_entry(smi),
              phase_alternates(cfg, det, det_f32, d640, x, smi),
-             phase_dp(det, det_fast, smi)]
+             phase_dp(det, det_fast, smi),
+             phase_bench(det, det_fast, smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

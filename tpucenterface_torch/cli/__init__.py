@@ -9,8 +9,9 @@
     python -m tpucenterface_torch.cli.train_flagship --workdir runs/flagship
     python -m tpucenterface_torch.cli.flagship_tta --workdir runs/flagship
     python -m tpucenterface_torch.cli.flagship_pins --workdir runs/flagship
+    python -m tpucenterface_torch.cli.bench_suite --configs 1,2,3,4,5
 
 Each takes the JAX package's arguments (`tpucenterface/cli/`) and `--device`:
 the GPU unless it names another (`--device cpu`); nothing falls back to the
-CPU. `bench_suite` is not ported.
+CPU.
 """

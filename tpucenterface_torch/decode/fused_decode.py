@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from tpucenterface_torch.config import DecodeConfig
+from tpucenterface_torch.runtime.profiling import counts_work
 from tpucenterface_torch.decode.reference import (
     boxes_from_cells,
     gather_cells,
@@ -262,6 +263,17 @@ def launch_decode(feats: Dict[str, torch.Tensor], cfg: DecodeConfig, plan: Decod
     return _launch(hm, wh, off, cfg, plan)
 
 
+def decode_work(feats: Dict[str, torch.Tensor], cfg: DecodeConfig) -> Tuple[int, int]:
+    """(operations, bytes) of one decode, as the kernel table's bound counts
+    them: hm read once, wh and off read at the K peaks, boxes, scores and
+    indices written once; per cell the sigmoid (4), 8 window maxima and the
+    peak select, float32."""
+    b, h, w = feats["hm"].shape[:3]
+    k = min(cfg.max_dets, h * w)
+    return b * h * w * 13, b * h * w * 4 + b * k * 4 * 4 + b * k * (4 + 1 + 1) * 4
+
+
+@counts_work("decode", decode_work)
 def decode_feats_fused(feats: Dict[str, torch.Tensor], cfg: DecodeConfig) -> Result:
     """Fused decode -> (boxes (B,K,4), scores (B,K), flat indices (B,K) int32).
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from tpucenterface_torch.decode.reference import pseudo_nms
+from tpucenterface_torch.runtime.profiling import counts_work
 
 # (rows, columns) of the tile a thread block of csrc/nms.cu takes (kTileH, kTileW)
 NMS_TILE = (32, 32)
@@ -77,6 +78,15 @@ def _kernel():
     return fn
 
 
+def nms_work(hm_logits: torch.Tensor):
+    """(operations, bytes) of one call, as the kernel table's bound counts
+    them: logits read once, scores written once; per cell nine sigmoids (4
+    each), eight maxima and the select."""
+    cells = hm_logits.numel()
+    return cells * 45, 2 * cells * 4
+
+
+@counts_work("sigmoid_nms", nms_work)
 def sigmoid_pseudo_nms_fused(hm_logits: torch.Tensor) -> torch.Tensor:
     """(B, H, W) float32 logits, any strides -> (B, H, W) peak-masked scores.
 

@@ -6,7 +6,8 @@ Mirrors `tpucenterface/detector.py::Detections` and `Detector` (`__init__`,
 `_batch_fn_auto`, `_batch_flip_fn`, `reload_weights`, `weights_version`,
 `detect`, `detect_batch`, `warmup`, `quantize`, `quant_variables`,
 `last_qat_metrics`, `last_adaround_report`, `dequantize`, `stem_input_lut`),
-`stage_inputs` and `_export_scales`:
+`stage_inputs` and `_export_scales`; `quantize_unsupported` says why `quantize()`
+would refuse a model, for callers that check before they ask:
 
     host:   zero-pad the frame to a shape bucket, copy to the device
     device: letterbox+normalize -> backbone -> neck -> heads -> decode
@@ -202,6 +203,19 @@ def stage_inputs(fmt: Optional[PinnedStaging], imgs: np.ndarray, hws: np.ndarray
         np.copyto(hw, hws)
 
     return fmt.stage(fill)
+
+
+def quantize_unsupported(model) -> Optional[str]:
+    """Why `Detector.quantize()` refuses a Detector of this (folded) model
+    config, or None where it takes it."""
+    if not model.folded:
+        return "quantize() requires folded inference weights"
+    if model.s2d_stem:
+        return "quantize() does not support s2d stems (the int8 engine runs the standard 3x3/s2 stem)"
+    if model.head_conv <= 0:
+        return ("quantize() requires head_conv > 0 (the int8 engine runs the fused-head form, which needs the "
+                "hidden head conv)")
+    return None
 
 
 def _decode_with(cfg, feats: Dict[str, torch.Tensor], max_dets: Optional[int] = None):
@@ -433,15 +447,9 @@ class Detector:
         with quantize(scales=..., quant_params=...). The bf16 weights stay;
         dequantize() returns to them."""
         model = self.config.model
-        if not model.folded:
-            raise ValueError("quantize() requires folded inference weights")
-        if model.s2d_stem:
-            raise ValueError("quantize() does not support s2d stems (the int8 engine runs the standard 3x3/s2 stem)")
-        if model.head_conv <= 0:
-            raise ValueError(
-                "quantize() requires head_conv > 0 (the int8 engine runs the fused-head form, which needs the "
-                "hidden head conv)"
-            )
+        reason = quantize_unsupported(model)
+        if reason is not None:
+            raise ValueError(reason)
         if scales is not None and "cfg:weight_bits" in scales:
             weight_bits = int(scales["cfg:weight_bits"])
         if scales is not None and "cfg:int8_dw" in scales:

@@ -32,6 +32,8 @@ from typing import Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from tpucenterface_torch.runtime.profiling import counts_work
+
 # The kernel keeps a halo'd input tile and two chunks of w1 in shared memory at
 # the input's full channel width; model/fast_forward.py sends it blocks of at
 # most this many input channels (every shape up to it has a plan).
@@ -443,6 +445,22 @@ def _check_x(x: torch.Tensor, cin: int, cout: int, skip: bool) -> None:
         raise ValueError(f"the skip needs Cin == Cout, got {cin} and {cout}")
 
 
+def mbconv_work(x: torch.Tensor, w1=None, b1=None, wd=None, bd=None, w2=None, b2=None, **_) -> Tuple[int, int]:
+    """(operations, bytes) of one block, as the kernel table's bound counts
+    them: the expand's and the project's products, the depthwise's nine
+    multiply-adds an expanded value; x read once, out written once, the
+    weights and biases read once (bfloat16)."""
+    if isinstance(w1, PackedMBConv):
+        ce, cout, expand = w1.ce, w1.cout, w1.expand
+    else:
+        ce, cout, expand = wd.shape[-1], w2.shape[-1], w1 is not None
+    b, h, w, cin = x.shape
+    pos = b * h * w
+    ex = cin * ce if expand else 0
+    return 2 * pos * (ex + ce * cout + 9 * ce), 2 * (pos * (cin + cout) + ex + 9 * ce + ce * cout + 2 * ce + cout)
+
+
+@counts_work("mbconv", mbconv_work)
 def fused_mbconv(
     x: torch.Tensor,
     w1=None,

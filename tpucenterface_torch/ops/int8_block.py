@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from tpucenterface_torch.quant.int8_ops import conv1x1_int8, dwconv3x3_int8
+from tpucenterface_torch.runtime.profiling import counts_work
 
 # ------------------------------------------------------------------------- #
 # layout helpers of the JAX package (`probe_fused_block.py:55-74`)
@@ -558,6 +559,28 @@ def _check_x(x: torch.Tensor) -> None:
         raise ValueError(f"empty input {tuple(x.shape)}")
 
 
+def _block_work(x: torch.Tensor, packed: PackedInt8BlockS1, stride: int) -> Tuple[int, int]:
+    """(operations, bytes) of one block launch, as the kernel table's bound
+    counts them: x and out once (int8 at stride 2, bf16 at stride 1), the
+    weights once; the expand at the input's positions, the depthwise's nine
+    multiply-adds an output and the project, all on int8 operands."""
+    b, h, w, cin = x.shape
+    cmid, cout = packed.cmid, packed.cout
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    nbytes = (x.element_size() * (b * h * w * cin + b * ho * wo * cout) + cmid * cin + cout * cmid + 9 * cmid * 4
+              + 4 * (6 * cmid + 2 * cout))
+    return 2 * (b * h * w * cin * cmid + b * ho * wo * cmid * cout) + 2 * 9 * b * ho * wo * cmid, nbytes
+
+
+def block_s2_work(x: torch.Tensor, packed: PackedInt8BlockS1):
+    return _block_work(x, packed, 2)
+
+
+def block_s1_work(x: torch.Tensor, inv_se, packed: PackedInt8BlockS1, residual: bool = True):
+    return _block_work(x, packed, 1)
+
+
+@counts_work("int8_block_s2", block_s2_work)
 def int8_block_s2(x: torch.Tensor, packed: PackedInt8BlockS1) -> torch.Tensor:
     """B6: the stride-2 block, NHWC int8 (B, H, W, Cin) -> NHWC int8 (B, Ho,
     Wo, Cout), Ho = (H - 1) // 2 + 1 (see the module docstring), on operands
@@ -601,6 +624,7 @@ def launch_int8_block_s2(x, packed: PackedInt8BlockS1, plan: Int8BlockPlan, out)
         raise RuntimeError(f"B6 kernel launch failed with CUDA error {rc}")
 
 
+@counts_work("int8_block_s1", block_s1_work)
 def int8_block_s1(x: torch.Tensor, inv_se: Union[float, torch.Tensor], packed: PackedInt8BlockS1,
                   residual: bool = True) -> torch.Tensor:
     """B7: the stride-1 block, NHWC bf16 -> NHWC bf16 (see the module

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from tpucenterface_torch.quant.int8_ops import _mm
+from tpucenterface_torch.runtime.profiling import counts_work
 
 
 def _vec(t: torch.Tensor, n: int, name: str) -> torch.Tensor:
@@ -295,6 +296,16 @@ def _x_align(x: torch.Tensor) -> int:
     return 16 if ptr % 16 == 0 else 8 if ptr % 8 == 0 else 4 if ptr % 4 == 0 else 1
 
 
+def conv1x1_work(x: torch.Tensor, w: torch.Tensor, scale=None, bias=None):
+    """(operations, bytes) of one call, as the kernel table's bound counts
+    them: the int8 products; x read and out written once (int8), w once, the
+    float32 scale and bias once."""
+    b, cin, p = x.shape
+    cout = w.shape[0]
+    return 2 * b * p * cin * cout, b * p * (cin + cout) + cout * cin + 8 * cout
+
+
+@counts_work("int8_conv1x1", conv1x1_work)
 def int8_conv1x1(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """(B, Cin, P) int8 -> (B, Cout, P) int8 (see the module docstring).
 

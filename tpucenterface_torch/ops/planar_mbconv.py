@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from tpucenterface_torch.ops.fused_mbconv import _act, mbconv_reference
+from tpucenterface_torch.runtime.profiling import counts_work
 
 LANE = 128
 # Limits of csrc/planar_chain.cu: an input tile with its
@@ -812,6 +813,43 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"empty input {tuple(x.shape)}")
 
 
+def _shapes_of(blocks, cin: int):
+    """The (Cin, Ce, Cout, expand) of each block of a PackedChain or of the
+    blocks' dicts."""
+    if isinstance(blocks, PackedChain):
+        return [(s.cin, s.ce, s.cout, s.expand) for s in blocks.shapes]
+    out = []
+    for blk in blocks:
+        ce, cout = blk["wd"].shape[-1], blk["w2"].shape[-1]
+        out.append((cin, ce, cout, blk["w1"] is not None))
+        cin = cout
+    return out
+
+
+def chain_work(x: torch.Tensor, blocks, *, H: int, W: int, **_) -> Tuple[int, int]:
+    """(operations, bytes) of a chain of blocks, as the kernel table's bound
+    counts them: each block's expand and project products and its depthwise's
+    nine multiply-adds an expanded value; x read once and the last block's
+    output written once (bfloat16), every weight read once (w1 and w2 in
+    bfloat16, wd and the biases in float32)."""
+    pos = x.shape[0] * H * W
+    shapes = _shapes_of(blocks, x.shape[1])
+    ops, nbytes = 0, 2 * pos * (shapes[0][0] + shapes[-1][2])
+    for cin, ce, cout, expand in shapes:
+        ex = cin * ce if expand else 0
+        ops += 2 * pos * (ex + ce * cout + 9 * ce)
+        nbytes += 2 * (ex + ce * cout) + 4 * (9 * ce + ce + cout + (ce if expand else 0))
+    return ops, nbytes
+
+
+def block_work(x: torch.Tensor, w1=None, b1=None, wd=None, bd=None, w2=None, b2=None, *, H: int, W: int,
+               **_) -> Tuple[int, int]:
+    """`chain_work` of one block: its PackedChain of one, or its weights."""
+    blocks = w1 if isinstance(w1, PackedChain) else [{"w1": w1, "wd": wd, "w2": w2}]
+    return chain_work(x, blocks, H=H, W=W)
+
+
+@counts_work("planar_block", block_work)
 def planar_mbconv(
     x: torch.Tensor,
     w1: Union[Optional[torch.Tensor], PackedChain],
@@ -894,6 +932,7 @@ def launch_planar_mbconv(x, packed: PackedChain, plan: OneBlockPlan, out, *, H: 
 planar_mbconv.launches = 0
 
 
+@counts_work("planar_chain", chain_work)
 def planar_mbconv_chain(
     x: torch.Tensor,
     blocks: Union[Sequence[Mapping[str, Any]], PackedChain],

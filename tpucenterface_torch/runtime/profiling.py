@@ -1,7 +1,8 @@
 """Profiling and observability.
 
 Mirrors `tpucenterface/runtime/profiling.py` (`trace`, `annotate`,
-`StepTimer`) over `torch.profiler`.
+`StepTimer`) over `torch.profiler`, and adds `counts_work`: the kernel
+wrappers' work ranges that `bench.op_profile` reads.
 
 Usage:
     from tpucenterface_torch.runtime.profiling import annotate, trace
@@ -15,9 +16,10 @@ Usage:
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -41,6 +43,35 @@ def trace(logdir: str) -> Iterator[None]:
 def annotate(name: str):
     """A named region that shows up in profiler timelines."""
     return torch.profiler.record_function(name)
+
+
+# The name of a kernel wrapper's work range: `tcf::<kernel> flops=<n> bytes=<n>`.
+WORK_RANGE_PREFIX = "tcf::"
+
+
+def counts_work(name: str, work: Callable[..., Tuple[int, int]]):
+    """Decorator of a kernel wrapper: while torch.profiler records, each call
+    runs inside a range named `tcf::<name> flops=<n> bytes=<n>`, where
+    `work(*args, **kwargs)` gives the operations the call computes and the
+    bytes it must move (each input read once, each output written once), read
+    off the arguments' shapes. The profiler counts no work for a kernel
+    launched through ctypes, so `bench.op_profile` credits the range's device
+    time and this work to one row, whatever runs inside (the kernel on a card,
+    the plain version on the CPU). Without a profiler the call goes straight
+    through."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            flops, nbytes = work(*args, **kwargs)
+            with torch.profiler.record_function(f"{WORK_RANGE_PREFIX}{name} flops={int(flops)} bytes={int(nbytes)}"):
+                return fn(*args, **kwargs)
+
+        return run
+
+    return wrap
 
 
 class StepTimer:
