@@ -173,6 +173,16 @@ Phases, in order; any failure raises and the script exits non-zero:
       `sweep_preset` on small, default and large; `slo_sweep` on the module
       forward (128 a launch, requests of 32, loads 0.5 and 0.95); the
       phase's seconds;
+   o. the headline (`[headline]`, `cli/bench.py`, the counterpart of the
+      root `bench.py`): `measure` on a default Detector (random weights, the
+      defaults: module forward, reference decode, the library int8 route)
+      at 32 images @ 640, bs128 serving, K = 100, its launches a pass cut as
+      HEADLINE_* says; its JSON line printed, with every key of bench.py's
+      line, the two `*vs_baseline` null, four rates inside their spreads,
+      the roofline shares in [0, 1]; the C++ table staging (`apply_stem_lut`)
+      against the numpy loop on the 128 frames, both timed; the int8-input
+      program against the quantized uint8 program, bit for bit; no kernel
+      launched;
 5. times with CUDA events (median after warm-up; the decode at bs32 and
    bs1 @ 640 and at DECODE_TIMED_SHAPES; the fused MBConv block one call on
    packed weights, one call on the six weights and back to back; the
@@ -545,6 +555,20 @@ ENTRY_DEMO_FRAMES, ENTRY_PARITY_SIZE = 32, 320
 # whole forward either way.
 BENCH_ITERS, BENCH_PRESET_ITERS, BENCH_PRESET_PASSES, BENCH_SLO_SECONDS = 10, 5, 2, 2.0
 BENCH_TOTAL_RTOL, BENCH_GFLOP_RTOL, BENCH_BLOCKS_RATIO = 0.25, 0.01, 2.0
+# `[headline]` (`cli/bench.py`) at bench.py's sizes (32 images @ 640, bs128
+# serving, K = 100) with its counts cut: launches of the bs32 program a pass
+# (bench.py's 100), launches of each bs128 serving program a pass (200; the
+# int8 programs take ~0.46 s a launch), passes (5).
+HEADLINE_ITERS, HEADLINE_SERVE_ITERS, HEADLINE_PASSES = 20, 8, 2
+# the keys of bench.py's JSON line (tests/test_torch_headline.py holds
+# cli/bench.py's to them)
+HEADLINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "value_spread", "serving_coalesced_img_s",
+    "serving_coalesced_spread", "serving_int8_img_s", "serving_int8_spread", "serving_int8_vs_baseline",
+    "serving_int8in_img_s", "serving_int8in_spread", "serving_mfu", "serving_hbm_frac", "serving_roofline",
+    "serving_sections", "serving_int8_sections", "serving_int8_mfu", "serving_int8_hbm_frac",
+    "serving_int8_roofline", "serving_note",
+)
 
 
 def log(msg: str) -> None:
@@ -2123,9 +2147,9 @@ def check_int8_engine(qdet, pool, smi):
     detector, both through map_stream on the same requests (two full
     launches and a ragged tail on the small rung): bit-identical detections;
     B7 ten launches and B2 one a serving launch; the native table staging
-    equal to the numpy `apply_stem_lut` byte for byte. Returns the counts."""
+    equal to the numpy `apply_stem_lut_plain` byte for byte. Returns the counts."""
     from tpucenterface_torch import native
-    from tpucenterface_torch.quant.engine import apply_stem_lut
+    from tpucenterface_torch.quant.engine import apply_stem_lut_plain
 
     reqs = serving_requests(pool, SERVING_INT8_IMAGES, seed=52)
     u8, i8 = _engine(qdet), _engine(qdet, int8_input=True)
@@ -2146,9 +2170,9 @@ def check_int8_engine(qdet, pool, smi):
                  for ra, rb in zip(ref, got) for a, b in zip(ra, rb))
     lut = qdet.stem_input_lut()
     staged = native.stem_lut_apply(pool[:16], lut)
-    same_lut = staged.tobytes() == apply_stem_lut(pool[:16], lut).tobytes()
+    same_lut = staged.tobytes() == apply_stem_lut_plain(pool[:16], lut).tobytes()
     log(f"[serving] int8-input engine: {differ} of {SERVING_INT8_IMAGES} images differ from the uint8 engine's "
-        f"(bit for bit); native table staging equal to the numpy apply_stem_lut: {same_lut}")
+        f"(bit for bit); native table staging equal to the numpy apply_stem_lut_plain: {same_lut}")
     if differ or not same_lut or sum(len(r) for r in got) != SERVING_INT8_IMAGES:
         raise AssertionError("[serving] the int8-input engine is not bit-identical to the uint8 engine")
     return launches
@@ -3513,9 +3537,9 @@ def _bench_suite(det, det_fast):
         raise AssertionError(f"[bench] config 5: no int8 variant ({out['int8_unavailable']})")
 
 
-def _check_share(what, v):
+def _check_share(what, v, tag="[bench]"):
     if v is None or not 0.0 <= v <= 1.0:
-        raise AssertionError(f"[bench] {what} = {v}, not a share in [0, 1]")
+        raise AssertionError(f"{tag} {what} = {v}, not a share in [0, 1]")
 
 
 def phase_bench(det, det_fast, smi):
@@ -3641,6 +3665,97 @@ def phase_bench(det, det_fast, smi):
     if any(n for k, n in launches.items() if k not in ("decode_feats_fused", "fused_mbconv")):
         raise AssertionError(f"[bench] launches {launches}: a kernel that no tool's path runs")
     log(f"[bench] passed in {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
+
+
+def check_headline_int8_input(det, imgs128, hws128, smi):
+    """C5 on the card's host and the int8-input program against the uint8
+    one: the C++ table staging (`apply_stem_lut`, nthreads=0) on the 128
+    frames equal to the numpy loop (`apply_stem_lut_plain`) byte for byte,
+    both timed; then, quantized as `cli/bench.py` quantizes, the int8-input
+    serving program on the staged frames against the uint8 program on the
+    raw ones: boxes and scores equal bit for bit."""
+    from tpucenterface_torch.detector import stage_inputs
+    from tpucenterface_torch.quant.engine import apply_stem_lut, apply_stem_lut_plain
+
+    b, side = imgs128.shape[:2]
+    det.quantize(calib_images=imgs128[:8], int8_dw=True)  # the first 8 of the 32 frames, as measure does
+    try:
+        lut = det.stem_input_lut()
+        cpp_s, plain_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            i8 = apply_stem_lut(imgs128, lut)
+            cpp_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        plain = apply_stem_lut_plain(imgs128, lut)
+        plain_s.append(time.perf_counter() - t0)
+        same = i8.tobytes() == plain.tobytes()
+        del plain
+        log(f"[headline] C5: apply_stem_lut (C++, nthreads=0, {os.cpu_count()} CPUs) on {imgs128.shape} "
+            f"({imgs128.nbytes / 1e6:.1f} MB): {min(cpp_s) * 1e3:.2f} ms (best of 3; "
+            f"{', '.join(f'{t * 1e3:.2f}' for t in cpp_s)}), apply_stem_lut_plain {plain_s[0] * 1e3:.2f} ms; "
+            f"equal byte for byte: {same}")
+        if not same:
+            raise AssertionError("[headline] C5: the C++ table staging differs from the numpy loop")
+        outs = []
+        for int8_in, images in ((False, imgs128), (True, i8)):
+            fn, fmt = det._batch_fn_auto(b, (side, side), side, identity=True, max_dets=100, int8_in=int8_in)
+            outs.append(tuple(t.cpu() for t in fn(*stage_inputs(fmt, images, hws128, det.device))))
+        del i8
+    finally:
+        det.dequantize()
+    (boxes, scores), (boxes_i8, scores_i8) = outs
+    differ = sum(not (torch.equal(boxes[i], boxes_i8[i]) and torch.equal(scores[i], scores_i8[i])) for i in range(b))
+    log(f"[headline] the int8-input program against the uint8 int8 program, bs{b} @ {side}, K = 100: {differ} of "
+        f"{b} images differ (bit for bit); scores >= 0.1: {int((scores >= 0.1).sum())} on {smi}")
+    if differ or boxes.shape != (b, 100, 4) or not torch.isfinite(boxes).all():
+        raise AssertionError(f"[headline] the int8-input program differs from the uint8 one on {differ} images")
+
+
+def phase_headline(smi):
+    """Path o, the headline (`[headline]`, `cli/bench.py`, the counterpart of
+    the root `bench.py`): `measure` on a default Detector (random weights,
+    module forward, reference decode, the library int8 route) at bench.py's
+    sizes, its counts cut to HEADLINE_*: every key of bench.py's line, the
+    two `*vs_baseline` null, the four rates finite and positive inside their
+    spreads, the four roofline shares in [0, 1], both section tables
+    non-empty; then `check_headline_int8_input`. At these defaults the
+    headline launches none of the port's kernels. Returns the launch counts
+    of the phase, set to 0 just before it and read just after."""
+    from tpucenterface_torch import Detector, DetectorConfig
+    from tpucenterface_torch.cli.bench import frames, measure
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    det = Detector(config=DetectorConfig())
+    log(f"[headline] cuts: {HEADLINE_ITERS} launches of the bs32 program a pass (bench.py's BENCH_ITERS 100), "
+        f"{HEADLINE_SERVE_ITERS} launches of each bs128 serving program a pass (200), {HEADLINE_PASSES} passes "
+        "(BENCH_PASSES 5)")
+    out = measure(det, iters=HEADLINE_ITERS, passes=HEADLINE_PASSES, serve_iters=HEADLINE_SERVE_ITERS)
+    log(f"[headline] measure took {time.perf_counter() - t_phase:.1f} s; its line:")
+    log("[headline] " + json.dumps(out))
+    if set(out) != set(HEADLINE_KEYS):
+        raise AssertionError(f"[headline] keys {sorted(set(out) ^ set(HEADLINE_KEYS))} differ from bench.py's")
+    if out["vs_baseline"] is not None or out["serving_int8_vs_baseline"] is not None:
+        raise AssertionError("[headline] a vs_baseline is set: no card target exists")
+    for rate, spread in (("value", "value_spread"), ("serving_coalesced_img_s", "serving_coalesced_spread"),
+                         ("serving_int8_img_s", "serving_int8_spread"),
+                         ("serving_int8in_img_s", "serving_int8in_spread")):
+        v, (lo, hi) = out[rate], out[spread]
+        if not (np.isfinite(v) and v > 0 and lo <= v <= hi):
+            raise AssertionError(f"[headline] {rate} {v}, spread {[lo, hi]}")
+    for share in ("serving_mfu", "serving_hbm_frac", "serving_int8_mfu", "serving_int8_hbm_frac"):
+        _check_share(share, out[share], "[headline]")
+    if not out["serving_sections"] or not out["serving_int8_sections"]:
+        raise AssertionError("[headline] a section table is empty")
+    imgs, hws = frames(32, 640)
+    check_headline_int8_input(det, np.tile(imgs, (4, 1, 1, 1)), np.tile(hws, (4, 1)), smi)
+    launches = read_launches()
+    log(f"[headline] kernel launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"[headline] launches {launches}: the headline's defaults run none of the kernels")
+    log(f"[headline] passed in {time.perf_counter() - t_phase:.1f} s on {smi}")
     return launches
 
 
@@ -4142,7 +4257,8 @@ def main() -> int:
              phase_entry(smi),
              phase_alternates(cfg, det, det_f32, d640, x, smi),
              phase_dp(det, det_fast, smi),
-             phase_bench(det, det_fast, smi)]
+             phase_bench(det, det_fast, smi),
+             phase_headline(smi)]
     launches = {name: sum(p[name] for p in paths) for name in errs}
     # no engine calls the one-block planar kernel (as in the JAX package), the
     # int8 1x1 conv or the stride-2 int8 block (their int8 outputs fit no

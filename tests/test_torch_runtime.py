@@ -1,7 +1,8 @@
 """The port's runtime helpers on the CPU: `runtime/prefetch.py`,
 `runtime/profiling.py`, and the host staging kernel of
 `tpucenterface_torch/native/` (the stem's uint8 -> int8 table) against the
-port's numpy `apply_stem_lut` and the JAX package's, byte for byte."""
+port's numpy `apply_stem_lut_plain` and the JAX package's `apply_stem_lut`,
+byte for byte."""
 
 import json
 import os
@@ -17,7 +18,7 @@ from tpucenterface.config import PreprocessConfig as JPre
 from tpucenterface.quant.engine import apply_stem_lut as jax_apply_stem_lut
 from tpucenterface.quant.engine import stem_input_lut as jax_stem_input_lut
 from tpucenterface_torch.config import PreprocessConfig
-from tpucenterface_torch.quant.engine import apply_stem_lut, stem_input_lut
+from tpucenterface_torch.quant.engine import apply_stem_lut, apply_stem_lut_plain, stem_input_lut
 from tpucenterface_torch.runtime import prefetch_to_device
 from tpucenterface_torch.runtime.profiling import StepTimer, annotate, trace
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
@@ -84,15 +85,17 @@ def gxx():
 
 def test_stem_lut_apply_matches_numpy_and_jax(gxx):
     """The C++ gather, threaded and inline, into a fresh array and into a
-    slice of a launch buffer, equals the port's numpy loop and the JAX
-    package's `apply_stem_lut` on the same table, byte for byte; the
-    port's table equals the JAX package's."""
+    slice of a launch buffer, and the port's `apply_stem_lut` (that C++
+    route) equal the port's numpy loop and the JAX package's
+    `apply_stem_lut` on the same table, byte for byte; the port's table
+    equals the JAX package's."""
     lut = stem_input_lut(PreprocessConfig(), "cpu")
     assert lut.tobytes() == np.asarray(jax_stem_input_lut(JPre())).tobytes()
     rng = np.random.RandomState(3)
     imgs = rng.randint(0, 256, (3, 130, 97, 3)).astype(np.uint8)  # above the 64k-pixel inline cut
-    want = apply_stem_lut(imgs, lut)
+    want = apply_stem_lut_plain(imgs, lut)
     assert want.tobytes() == np.asarray(jax_apply_stem_lut(imgs, lut)).tobytes()
+    assert apply_stem_lut(imgs, lut).tobytes() == want.tobytes()
     for nthreads in (0, 1, 3):
         assert native.stem_lut_apply(imgs, lut, nthreads=nthreads).tobytes() == want.tobytes()
     buf = np.full((5, 130, 97, 3), 7, np.int8)

@@ -667,7 +667,7 @@ def test_int8_input_program_feeds_the_table(det):
     uint8 identity program on the raw batch, bit for bit, and the native
     staging equals the numpy table apply byte for byte."""
     from tpucenterface_torch import native
-    from tpucenterface_torch.quant.engine import apply_stem_lut
+    from tpucenterface_torch.quant.engine import apply_stem_lut_plain
 
     rng = np.random.RandomState(45)
     det.quantize(calib_images=rng.randint(0, 255, (4, *HW, 3), np.uint8), int8_dw=True)
@@ -676,7 +676,7 @@ def test_int8_input_program_feeds_the_table(det):
         hws = torch.full((3, 2), 64, dtype=torch.int32)
         lut = det.stem_input_lut()
         staged = native.stem_lut_apply(imgs, lut)
-        assert staged.tobytes() == apply_stem_lut(imgs, lut).tobytes()
+        assert staged.tobytes() == apply_stem_lut_plain(imgs, lut).tobytes()
         want = det._batch_fn(3, HW, 64, identity=True)(torch.from_numpy(imgs), hws)
         got = det._batch_fn(3, HW, 64, identity=True, int8_in=True)(torch.from_numpy(staged), hws)
         for a, b in zip(got, want):

@@ -14,7 +14,7 @@ of the source, the flags, the compiler's version and the host, so a library
 built on one machine is never loaded on another; the build writes a
 per-process temporary and renames it into place. A failed build or load
 raises (`available` and `stage_available` answer False instead): nothing
-falls back to a numpy loop (`quant.engine.apply_stem_lut`,
+falls back to a numpy loop (`quant.engine.apply_stem_lut_plain`,
 `eval.wider_eval.bbox_overlaps_plain` and `eval.tta.nms_plain` stay the plain
 versions the tests hold these kernels to).
 """

@@ -1,8 +1,9 @@
 """W8A8 post-training quantized inference engine.
 
 Mirrors `tpucenterface/quant/engine.py` (`stem_fixed_scale`, `stem_input_lut`,
-`apply_stem_lut`, `_quantize_weight` as `quantize_weight_t`, `fake_quant`,
-`fake_quant_weight`, `QuantEngine`). One traversal drives four modes:
+`apply_stem_lut`, whose numpy loop is `apply_stem_lut_plain`, `_quantize_weight`
+as `quantize_weight_t`, `fake_quant`, `fake_quant_weight`, `QuantEngine`).
+One traversal drives four modes:
 - 'float'     : the bf16 folded forward (bf16 operands, float32 sums);
 - 'calibrate' : the same forward, recording each conv input's absolute
                 maximum (or a percentile of it);
@@ -82,6 +83,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpucenterface_torch import native
 from tpucenterface_torch.config import ModelConfig, resolve_device
 from tpucenterface_torch.model.backbone import _is_skip, backbone_plan
 from tpucenterface_torch.quant.int8_ops import conv1x1_int8, conv3x3_int8, dwconv3x3_int8
@@ -113,8 +115,17 @@ def stem_input_lut(pp_cfg, device=None) -> np.ndarray:
     return q.reshape(256, 3).cpu().numpy()
 
 
-def apply_stem_lut(imgs_u8: np.ndarray, lut: np.ndarray) -> np.ndarray:
-    """Apply `stem_input_lut` to (..., 3) uint8 images -> int8."""
+def apply_stem_lut(imgs_u8: np.ndarray, lut: np.ndarray, nthreads: int = 0) -> np.ndarray:
+    """Apply `stem_input_lut` to (..., 3) uint8 images -> int8, through the
+    threaded C++ table gather (`native.stem_lut_apply`); nthreads=0 uses the
+    host's CPU count. Where the library does not build or load this raises:
+    nothing falls back to `apply_stem_lut_plain`, the plain version that the
+    C++ route is held to."""
+    return native.stem_lut_apply(imgs_u8, lut, nthreads=nthreads)
+
+
+def apply_stem_lut_plain(imgs_u8: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """`apply_stem_lut` as a numpy loop, one fancy-indexed gather a channel."""
     out = np.empty(imgs_u8.shape, np.int8)
     for c in range(3):
         out[..., c] = lut[:, c][imgs_u8[..., c]]
