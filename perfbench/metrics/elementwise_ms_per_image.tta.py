@@ -1,0 +1,5 @@
+"""elementwise_ms_per_image.tta: `elementwise_ms_per_image` in the TTA cells, where it moves `images_per_s.tta`."""
+
+from perfbench.registry import reader
+
+read = reader("elementwise_ms_per_image")

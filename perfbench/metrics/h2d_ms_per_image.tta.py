@@ -1,0 +1,5 @@
+"""h2d_ms_per_image.tta: `h2d_ms_per_image` in the TTA cells, where it moves `images_per_s.tta`."""
+
+from perfbench.registry import reader
+
+read = reader("h2d_ms_per_image")

@@ -1,0 +1,5 @@
+"""mfu.tta: `mfu` in the TTA cells, where it moves `images_per_s.tta`."""
+
+from perfbench.registry import reader
+
+read = reader("mfu")

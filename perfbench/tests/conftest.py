@@ -1,0 +1,13 @@
+"""CPU tests of the benchmark harness; tests marked `card` need a CUDA
+device and skip without one (decided inside the test, never at import)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device; skips without one")
