@@ -1,0 +1,5 @@
+"""forward_launched_ms_per_image.tta: `forward_launched_ms_per_image` in the TTA cells, where it moves `images_per_s.tta`."""
+
+from perfbench.registry import reader
+
+read = reader("forward_launched_ms_per_image")

@@ -1,0 +1,5 @@
+"""results_idle_ms_per_image.tta: `results_idle_ms_per_image` in the TTA cells, where it moves `images_per_s.tta`."""
+
+from perfbench.registry import reader
+
+read = reader("results_idle_ms_per_image")

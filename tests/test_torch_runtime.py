@@ -7,7 +7,6 @@ byte for byte."""
 import json
 import os
 import shutil
-import time
 
 import numpy as np
 import pytest
@@ -20,7 +19,7 @@ from tpucenterface.quant.engine import stem_input_lut as jax_stem_input_lut
 from tpucenterface_torch.config import PreprocessConfig
 from tpucenterface_torch.quant.engine import apply_stem_lut, apply_stem_lut_plain, stem_input_lut
 from tpucenterface_torch.runtime import prefetch_to_device
-from tpucenterface_torch.runtime.profiling import StepTimer, annotate, trace
+from tpucenterface_torch.runtime.profiling import annotate, trace
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
@@ -51,19 +50,6 @@ def test_prefetch_refuses_what_it_cannot_do():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             list(prefetch_to_device(iter(_batches(1))))
-
-
-def test_step_timer():
-    timer = StepTimer(alpha=0.5)
-    assert timer.fps == 0.0 and timer.ema_ms is None
-    timer.tic()
-    time.sleep(0.01)
-    first = timer.toc()
-    assert first >= 10.0 and timer.ema_ms == first
-    timer.tic()
-    second = timer.toc()
-    assert timer.ema_ms == pytest.approx(0.5 * second + 0.5 * first)
-    assert timer.fps == pytest.approx(1000.0 / timer.ema_ms)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -57,6 +57,12 @@ stages a launch into XLA's preferred input layouts, the port stages it
 through a ring of reused pinned host buffers and a copy stream
 (`PinnedStaging`), so that the copy of launch N+1 runs beside program N.
 
+Spans (`runtime.profiling.annotate`, a check and nothing more without a
+profiler): `stage_inputs` runs inside `tcf.stage`; a batch program's
+layers inside `tcf.preprocess`, `tcf.forward` and `tcf.decode`;
+`results_to_detections` inside `tcf.results`; a program built on a cache
+miss inside `tcf.build`.
+
 The space-to-depth stem (`ModelConfig.s2d_stem`) follows the JAX
 Detector's rules: a 3x3 stem is remapped after the stem bake when every
 bucket and `default_size` are even; a model built with the 2x2 stem is an s2d
@@ -95,6 +101,7 @@ from tpucenterface_torch.preprocess import (
 from tpucenterface_torch.quant.adaround import adaround
 from tpucenterface_torch.quant.engine import QuantEngine, stem_input_lut
 from tpucenterface_torch.quant.qat import qat_finetune
+from tpucenterface_torch.runtime.profiling import annotate
 from tpucenterface_torch.weights.fold import fold_variables
 from tpucenterface_torch.weights.io import load_safetensors
 from tpucenterface_torch.weights.port import load_torch_pth
@@ -185,24 +192,27 @@ class PinnedStaging:
 def stage_inputs(fmt: Optional[PinnedStaging], imgs: np.ndarray, hws: np.ndarray, device=None):
     """Stage a (images, hws) launch for a `_batch_fn_auto` program: through
     the program's pinned staging ring when `fmt` is one, else the pageable
-    `.to(device)` copy of `detect_batch` (on a CUDA device it waits for the
-    work queued ahead on the stream). The one place where a launch's inputs
-    reach the device, for `detect_batch` and `ServingEngine` alike."""
-    if fmt is None:
-        dev = resolve_device(device)
-        return (torch.from_numpy(np.ascontiguousarray(imgs)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(hws, np.int32)).to(dev))
-    imgs = np.asarray(imgs)
-    hws = np.asarray(hws, np.int32)
-    if imgs.shape != fmt.shape or imgs.dtype != np.uint8 or hws.shape != (fmt.shape[0], 2):
-        raise ValueError(f"staging takes uint8 {fmt.shape} and hws ({fmt.shape[0]}, 2), got "
-                         f"{imgs.dtype} {imgs.shape} and {hws.shape}")
+    `.to(device)` copy (on a CUDA device it waits for the work queued ahead
+    on the stream). Where a batch launch's inputs reach the device, for
+    `detect_batch`, `ServingEngine` and the batched runners of
+    `eval.batch_runner` alike (`detect` copies its one frame itself), inside
+    the span `tcf.stage`."""
+    with annotate("tcf.stage"):
+        if fmt is None:
+            dev = resolve_device(device)
+            return (torch.from_numpy(np.ascontiguousarray(imgs)).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(hws, np.int32)).to(dev))
+        imgs = np.asarray(imgs)
+        hws = np.asarray(hws, np.int32)
+        if imgs.shape != fmt.shape or imgs.dtype != np.uint8 or hws.shape != (fmt.shape[0], 2):
+            raise ValueError(f"staging takes uint8 {fmt.shape} and hws ({fmt.shape[0]}, 2), got "
+                             f"{imgs.dtype} {imgs.shape} and {hws.shape}")
 
-    def fill(im, hw):
-        np.copyto(im, imgs)
-        np.copyto(hw, hws)
+        def fill(im, hw):
+            np.copyto(im, imgs)
+            np.copyto(hw, hws)
 
-    return fmt.stage(fill)
+        return fmt.stage(fill)
 
 
 def quantize_unsupported(model) -> Optional[str]:
@@ -564,7 +574,8 @@ class Detector:
             fn = self._fn_cache.get(key)
         if fn is not None:
             return fn
-        run = builder(gen)
+        with annotate("tcf.build"):
+            run = builder(gen)
         with self._fn_lock:
             if self.weights_version != gen.version:
                 return run
@@ -583,17 +594,19 @@ class Detector:
         self, res, thresh: float, lo: int = 0, hi: Optional[int] = None
     ) -> List[Detections]:
         """Split a (boxes, scores[, landmarks]) tensor result into per-image
-        thresholded `Detections` for images lo..hi-1 (all by default)."""
-        boxes, scores = res[0].cpu().numpy(), res[1].cpu().numpy()
-        lms = res[2].cpu().numpy() if len(res) == 3 else None
-        hi = boxes.shape[0] if hi is None else hi
-        out: List[Detections] = []
-        for i in range(lo, hi):
-            keep = scores[i] >= thresh
-            out.append(
-                Detections(boxes[i][keep], scores[i][keep], lms[i][keep] if lms is not None else None)
-            )
-        return out
+        thresholded `Detections` for images lo..hi-1 (all by default), inside
+        the span `tcf.results` (the fetch waits for the launch)."""
+        with annotate("tcf.results"):
+            boxes, scores = res[0].cpu().numpy(), res[1].cpu().numpy()
+            lms = res[2].cpu().numpy() if len(res) == 3 else None
+            hi = boxes.shape[0] if hi is None else hi
+            out: List[Detections] = []
+            for i in range(lo, hi):
+                keep = scores[i] >= thresh
+                out.append(
+                    Detections(boxes[i][keep], scores[i][keep], lms[i][keep] if lms is not None else None)
+                )
+            return out
 
     # ------------------------------------------------------------------ #
     # programs: one per signature and weights generation, as the JAX
@@ -621,20 +634,24 @@ class Detector:
             # launch runs the program on each device's share of the batch
             n = imgs_u8.shape[0]
             with torch.inference_mode():
-                if int8_in or identity:
-                    # int8_in: already quantized through the stem's table on
-                    # the host; the engine's stem takes int8 as it is
-                    # (QuantEngine._conv)
-                    x = imgs_u8 if int8_in else normalize_images(imgs_u8, pp, raw=raw)
-                    scales = torch.ones((n,), dtype=torch.float32, device=dev)
-                    pads = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-                else:
-                    x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
-                boxes, scores, lm = _decode_with(cfg.decode, gen.forward(x), max_dets)
-                boxes = boxes_to_original(boxes, scales, pads, hws)
-                if lm is None:
-                    return boxes, scores
-                return boxes, scores, landmarks_to_original(lm, scales, pads, hws)
+                with annotate("tcf.preprocess"):
+                    if int8_in or identity:
+                        # int8_in: already quantized through the stem's table
+                        # on the host; the engine's stem takes int8 as it is
+                        # (QuantEngine._conv)
+                        x = imgs_u8 if int8_in else normalize_images(imgs_u8, pp, raw=raw)
+                        scales = torch.ones((n,), dtype=torch.float32, device=dev)
+                        pads = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+                    else:
+                        x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
+                with annotate("tcf.forward"):
+                    feats = gen.forward(x)
+                with annotate("tcf.decode"):
+                    boxes, scores, lm = _decode_with(cfg.decode, feats, max_dets)
+                    boxes = boxes_to_original(boxes, scales, pads, hws)
+                    if lm is None:
+                        return boxes, scores
+                    return boxes, scores, landmarks_to_original(lm, scales, pads, hws)
 
         return run
 
@@ -732,18 +749,24 @@ class Detector:
 
             def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
                 with torch.inference_mode():
-                    x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
-                    boxes, scores, lm = _decode_with(cfg.decode, gen.forward(torch.cat([x, x.flip(2)])))
-                    mir = boxes[batch:]
-                    mir = torch.stack([edge - mir[..., 2], mir[..., 1], edge - mir[..., 0], mir[..., 3]], dim=-1)
-                    boxes = boxes_to_original(torch.cat([boxes[:batch], mir], dim=1), scales, pads, hws)
-                    scores = torch.cat([scores[:batch], scores[batch:]], dim=1)
-                    if lm is None:
-                        return boxes, scores
-                    lm_mir = lm[batch:]
-                    lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1)[:, :, perm, :]
-                    lm = landmarks_to_original(torch.cat([lm[:batch], lm_mir], dim=1), scales, pads, hws)
-                    return boxes, scores, lm
+                    with annotate("tcf.preprocess"):
+                        x, scales, pads = letterbox_normalize_batch(imgs_u8, hws, size, pp, raw=raw)
+                        x = torch.cat([x, x.flip(2)])
+                    with annotate("tcf.forward"):
+                        feats = gen.forward(x)
+                    with annotate("tcf.decode"):
+                        boxes, scores, lm = _decode_with(cfg.decode, feats)
+                        mir = boxes[batch:]
+                        mir = torch.stack([edge - mir[..., 2], mir[..., 1], edge - mir[..., 0], mir[..., 3]],
+                                          dim=-1)
+                        boxes = boxes_to_original(torch.cat([boxes[:batch], mir], dim=1), scales, pads, hws)
+                        scores = torch.cat([scores[:batch], scores[batch:]], dim=1)
+                        if lm is None:
+                            return boxes, scores
+                        lm_mir = lm[batch:]
+                        lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1)[:, :, perm, :]
+                        lm = landmarks_to_original(torch.cat([lm[:batch], lm_mir], dim=1), scales, pads, hws)
+                        return boxes, scores, lm
 
             return run
 

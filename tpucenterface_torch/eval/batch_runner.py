@@ -6,7 +6,9 @@ sent as fixed-size batches on a {batch_size // 4, batch_size} ladder (a
 ragged tail pads to the smaller rung), so the programs run at few
 signatures. Up to `inflight` launches are left unfetched while the next one
 is enqueued; results are fetched in launch order and come back in the
-caller's order.
+caller's order. Each launch's inputs reach the device through
+`detector.stage_inputs`; the TTA runner adds the spans `tcf.tta.pad`,
+`tcf.tta.assemble` (once a chunk) and `tcf.tta.merge` to the detector's.
 """
 
 from __future__ import annotations
@@ -14,11 +16,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from tpucenterface_torch.detector import Detections
+from tpucenterface_torch.detector import Detections, stage_inputs
 from tpucenterface_torch.eval.tta import merge_detections, pick_bucket
 from tpucenterface_torch.preprocess import pad_to_bucket
+from tpucenterface_torch.runtime.profiling import annotate
 
 
 def _ladder(batch_size: int) -> List[int]:
@@ -68,7 +70,7 @@ def batched_detect(
                 batch[j] = padded[i]
             hws[: len(chunk)] = real_hws
             fn = detector._batch_fn(bs, shape, size, identity=identity)
-            launched.append((chunk, fn(torch.from_numpy(batch).to(dev), torch.from_numpy(hws).to(dev))))
+            launched.append((chunk, fn(*stage_inputs(None, batch, hws, dev))))
             while len(launched) > inflight:
                 drain_one()
     while launched:
@@ -100,38 +102,40 @@ def batched_detect_tta(
     (batch, padded_shape, size, flip) tuple per program launch."""
     buckets = detector.config.buckets
     dev = detector.device
-    padded = [pad_to_bucket(img) for img in images]
-    sizes_per_img = [
-        tuple(pick_bucket(buckets, max(img.shape[:2]) * s) for s in scales) for img in images
-    ]
+    with annotate("tcf.tta.pad"):
+        padded = [pad_to_bucket(img) for img in images]
+        sizes_per_img = [
+            tuple(pick_bucket(buckets, max(img.shape[:2]) * s) for s in scales) for img in images
+        ]
     parts: List[List[np.ndarray]] = [[] for _ in images]
     lm_parts: List[List] = [[] for _ in images]
     launched: List = []  # (chunk, size, result) of launches not fetched yet
 
     def drain_one():
         chunk, size, out = launched.pop(0)
-        boxes, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
-        lms = out[2].cpu().numpy() if len(out) == 3 else None
-        for j, i in enumerate(chunk):
-            if size not in sizes_per_img[i]:
-                continue
-            keep = scores[j] >= score_thresh
-            if keep.any():
-                parts[i].append(np.concatenate([boxes[j][keep], scores[j][keep, None]], axis=1))
-                lm_parts[i].append(lms[j][keep] if lms is not None else None)
+        with annotate("tcf.results"):
+            boxes, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
+            lms = out[2].cpu().numpy() if len(out) == 3 else None
+            for j, i in enumerate(chunk):
+                if size not in sizes_per_img[i]:
+                    continue
+                keep = scores[j] >= score_thresh
+                if keep.any():
+                    parts[i].append(np.concatenate([boxes[j][keep], scores[j][keep, None]], axis=1))
+                    lm_parts[i].append(lms[j][keep] if lms is not None else None)
 
     ladder = _ladder(batch_size)
     for shape, idxs in _groups(padded).items():
         for c0 in range(0, len(idxs), batch_size):
             chunk = idxs[c0 : c0 + batch_size]
             bs = min(r for r in ladder if r >= len(chunk))
-            batch = np.zeros((bs,) + shape + (3,), np.uint8)
-            hws = np.ones((bs, 2), np.int32)
-            for j, i in enumerate(chunk):
-                batch[j] = padded[i]
-                hws[j] = images[i].shape[:2]
-            dev_batch = torch.from_numpy(batch).to(dev)  # one copy a chunk
-            dev_hws = torch.from_numpy(hws).to(dev)
+            with annotate("tcf.tta.assemble"):
+                batch = np.zeros((bs,) + shape + (3,), np.uint8)
+                hws = np.ones((bs, 2), np.int32)
+                for j, i in enumerate(chunk):
+                    batch[j] = padded[i]
+                    hws[j] = images[i].shape[:2]
+            dev_batch, dev_hws = stage_inputs(None, batch, hws, dev)  # one copy a chunk
             for size in sorted({s for i in chunk for s in sizes_per_img[i]}):
                 if flip:
                     fn = detector._batch_flip_fn(bs, shape, size)
@@ -144,4 +148,5 @@ def batched_detect_tta(
                     drain_one()
     while launched:
         drain_one()
-    return [merge_detections(p, lp, nms_thresh, max_dets) for p, lp in zip(parts, lm_parts)]
+    with annotate("tcf.tta.merge"):
+        return [merge_detections(p, lp, nms_thresh, max_dets) for p, lp in zip(parts, lm_parts)]

@@ -1,15 +1,27 @@
 """Profiling and observability.
 
-Mirrors `tpucenterface/runtime/profiling.py` (`trace`, `annotate`,
-`StepTimer`) over `torch.profiler`, and adds `counts_work`: the kernel
-wrappers' work ranges that `bench.op_profile` reads.
+Mirrors `tpucenterface/runtime/profiling.py` (`trace`, `annotate`) over
+`torch.profiler`, and adds `counts_work`: the kernel wrappers' work ranges
+that `bench.op_profile` reads.
+
+Two kinds of named range, told apart by their separator:
+- spans, `tcf.<layer>` (`annotate`): the layer boundaries of the entry
+  points, `tcf.stage`, `tcf.preprocess`, `tcf.forward`, `tcf.decode`,
+  `tcf.results` and `tcf.build` in `detector.py`, `tcf.tta.pad`,
+  `tcf.tta.assemble` and `tcf.tta.merge` in `eval/batch_runner.py`. Names
+  are fixed (no shape or id in them) so that a trace groups them, and none
+  sits inside a per-image or per-block loop;
+- work ranges, `tcf::<kernel> flops=<n> bytes=<n>` (`counts_work`), one a
+  kernel wrapper's call.
+
+Both check first whether a profiler records, and cost ~1 us when none does.
 
 Usage:
     from tpucenterface_torch.runtime.profiling import annotate, trace
     with trace("runs/profile"):        # a Chrome trace (chrome://tracing, Perfetto)
         det.detect_batch(imgs)
 
-    with annotate("decode"):           # a named region in the trace
+    with annotate("tcf.decode"):       # a named region in the trace
         ...
 """
 
@@ -19,7 +31,7 @@ import contextlib
 import functools
 import os
 import time
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, Tuple
 
 import torch
 
@@ -40,8 +52,16 @@ def trace(logdir: str) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region that shows up in profiler timelines."""
+    """A named region of the profiler's timeline (a `tcf.<layer>` span, see
+    the module doc) while torch.profiler records; else a null context, so
+    that a span on the hot path costs one check (an unchecked
+    `record_function` costs ~10x as much with no profiler running)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
@@ -72,25 +92,3 @@ def counts_work(name: str, work: Callable[..., Tuple[int, int]]):
         return run
 
     return wrap
-
-
-class StepTimer:
-    """Lightweight host-side step timing with EMA (the reference's FPS-print
-    equivalent, but structured)."""
-
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.ema_ms: Optional[float] = None
-        self._t: Optional[float] = None
-
-    def tic(self) -> None:
-        self._t = time.perf_counter()
-
-    def toc(self) -> float:
-        dt = (time.perf_counter() - self._t) * 1e3
-        self.ema_ms = dt if self.ema_ms is None else (self.alpha * dt + (1 - self.alpha) * self.ema_ms)
-        return dt
-
-    @property
-    def fps(self) -> float:
-        return 1000.0 / self.ema_ms if self.ema_ms else 0.0
