@@ -429,22 +429,25 @@ def _compare_mirror_half(dtype, flipped, port, img, hw):
         match_detections(flipped, want, box_atol=2.0, score_atol=0.03, firm=0.1)
 
 
-def test_landmark_flip_fn_matches_jax():
+@pytest.mark.parametrize("perm", [None, (4, 2, 0, 1, 3)])
+def test_landmark_flip_fn_matches_jax(perm):
     """A landmark model (random weights from a seed, float32): the flip
     program carries the points, un-mirrored and pair-swapped by
-    `lm_flip_perm`, as the JAX program does; the fused dense stage is on."""
+    `lm_flip_perm` (the default pairs, and a permutation that is no
+    involution), as the JAX program does; the fused dense stage is on."""
     model = T.ModelConfig(with_landmarks=True, compute_dtype="float32")
     _, variables = T.model.centernet.init_model(model, seed=11)
+    swap = {} if perm is None else {"lm_flip_perm": perm}
     port = T.Detector(
         variables=variables,
-        config=T.DetectorConfig(model=model, decode=T.DecodeConfig(use_pallas=True),
+        config=T.DetectorConfig(model=model, decode=T.DecodeConfig(use_pallas=True, **swap),
                                 preprocess=T.PreprocessConfig(resize_dtype="float32"), default_size=PSIZE),
         device="cpu",
     )
     ref = JDetector(
         variables=variables,
         config=JDetectorConfig(model=JModel(with_landmarks=True, compute_dtype="float32"),
-                               decode=JDecode(fast_topk=False), preprocess=JPre(resize_dtype="float32"),
+                               decode=JDecode(fast_topk=False, **swap), preprocess=JPre(resize_dtype="float32"),
                                default_size=PSIZE),
     )
     imgs = _scenes(2, seed=23, hw=(PSIZE, PSIZE))
@@ -457,6 +460,39 @@ def test_landmark_flip_fn_matches_jax():
     # the mirror half's points: mirrored x, left/right pairs swapped
     flipped = T.Detections(got[0][0, 200:].numpy(), got[1][0, 200:].numpy(), got[2][0, 200:].numpy())
     _compare_mirror_half("float32", flipped, port, imgs[:1], hws[:1])
+
+
+@pytest.mark.parametrize("perm", [(1, 0, 2, 4, 3), (4, 2, 0, 1, 3)])
+def test_landmark_flip_fn_pair_swap_is_the_list_gather(perm):
+    """A guard beside `test_landmark_flip_fn_matches_jax`: the flip program's
+    mirror-half landmarks, pair-swapped through the index it keeps on the
+    device, equal bit for bit the gather indexed by the list `lm_flip_perm`
+    over the same forward and decode (the default pairs and a permutation
+    that is no involution)."""
+    from tpucenterface_torch.decode.reference import landmarks_to_original
+    from tpucenterface_torch.detector import _decode_with
+    from tpucenterface_torch.preprocess import letterbox_normalize_batch
+
+    model = T.ModelConfig(with_landmarks=True, compute_dtype="float32")
+    _, variables = T.model.centernet.init_model(model, seed=11)
+    port = T.Detector(
+        variables=variables,
+        config=T.DetectorConfig(model=model, decode=T.DecodeConfig(use_pallas=True, lm_flip_perm=perm),
+                                preprocess=T.PreprocessConfig(resize_dtype="float32"), default_size=PSIZE),
+        device="cpu",
+    )
+    imgs = torch.from_numpy(np.ascontiguousarray(_scenes(2, seed=29, hw=(PSIZE, PSIZE))))
+    hws = torch.tensor([[PSIZE, 101], [77, PSIZE]], dtype=torch.int32)
+    got = port._batch_flip_fn(2, (PSIZE, PSIZE), PSIZE)(imgs, hws)
+    cfg = port.config
+    with torch.inference_mode():
+        x, scales, pads = letterbox_normalize_batch(imgs, hws, PSIZE, cfg.preprocess, raw=cfg.model.stem_preprocess)
+        _, _, lm = _decode_with(cfg.decode, port._generation().forward(torch.cat([x, x.flip(2)])))
+        mir = lm[2:]
+        mir = torch.stack([(PSIZE - 1.0) - mir[..., 0], mir[..., 1]], dim=-1)[:, :, list(perm), :]
+        want = landmarks_to_original(torch.cat([lm[:2], mir], dim=1), scales, pads, hws)
+    assert got[2].dtype == want.dtype and tuple(got[2].shape) == (2, 400, 5, 2)
+    assert torch.equal(got[2], want)
 
 
 @pytest.fixture(scope="module")

@@ -591,12 +591,16 @@ class Detector:
         )
 
     def results_to_detections(
-        self, res, thresh: float, lo: int = 0, hi: Optional[int] = None
+        self, res, thresh: float, lo: int = 0, hi: Optional[int] = None, done=None
     ) -> List[Detections]:
         """Split a (boxes, scores[, landmarks]) tensor result into per-image
         thresholded `Detections` for images lo..hi-1 (all by default), inside
-        the span `tcf.results` (the fetch waits for the launch)."""
+        the span `tcf.results` (the fetch waits for the launch). `done`, if
+        given, is the CUDA event that marks host tensors `res` filled by a
+        copy already under way (`eval.batch_runner._fetch_behind`)."""
         with annotate("tcf.results"):
+            if done is not None:
+                done.synchronize()
             boxes, scores = res[0].cpu().numpy(), res[1].cpu().numpy()
             lms = res[2].cpu().numpy() if len(res) == 3 else None
             hi = boxes.shape[0] if hi is None else hi
@@ -744,7 +748,10 @@ class Detector:
                 raise ValueError("the flip program needs a centered letterbox (PreprocessConfig.center)")
             raw = cfg.model.stem_preprocess
             pp = cfg.preprocess
-            perm = list(cfg.decode.lm_flip_perm)
+            # the pair swap's index, on the device once: indexing with a list
+            # copies it there on every launch, and that pageable copy waits
+            # for the stream, so the host would wait for each launch's forward
+            perm = torch.tensor(cfg.decode.lm_flip_perm, dtype=torch.long, device=self.device)
             edge = size - 1.0
 
             def run(imgs_u8: torch.Tensor, hws: torch.Tensor):
@@ -764,7 +771,7 @@ class Detector:
                         if lm is None:
                             return boxes, scores
                         lm_mir = lm[batch:]
-                        lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1)[:, :, perm, :]
+                        lm_mir = torch.stack([edge - lm_mir[..., 0], lm_mir[..., 1]], dim=-1).index_select(2, perm)
                         lm = landmarks_to_original(torch.cat([lm[:batch], lm_mir], dim=1), scales, pads, hws)
                         return boxes, scores, lm
 

@@ -6,7 +6,9 @@ sent as fixed-size batches on a {batch_size // 4, batch_size} ladder (a
 ragged tail pads to the smaller rung), so the programs run at few
 signatures. Up to `inflight` launches are left unfetched while the next one
 is enqueued; results are fetched in launch order and come back in the
-caller's order. Each launch's inputs reach the device through
+caller's order (both runners start each launch's copy to the host right
+behind the launch, `_fetch_behind`, so that a drain waits for that launch
+alone). Each launch's inputs reach the device through
 `detector.stage_inputs`; the TTA runner adds the spans `tcf.tta.pad`,
 `tcf.tta.assemble` (once a chunk) and `tcf.tta.merge` to the detector's.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from tpucenterface_torch.detector import Detections, stage_inputs
 from tpucenterface_torch.eval.tta import merge_detections, pick_bucket
@@ -34,6 +37,24 @@ def _groups(padded: Sequence[np.ndarray]) -> Dict[Tuple[int, int], List[int]]:
     return groups
 
 
+def _fetch_behind(out: Tuple[torch.Tensor, ...]):
+    """Start copying a launch's outputs to the host right behind the launch,
+    on its stream: (host tensors, the CUDA event that marks them complete,
+    or None where the outputs are on the host already). A `.cpu()` when the
+    launch is drained would queue behind every launch issued since, and the
+    host would wait for those too: `inflight` would then overlap no host work
+    with the card. The copies and the event go to the outputs' own card,
+    which need not be the process's current device."""
+    dev = out[0].device
+    if dev.type != "cuda":
+        return out, None
+    with torch.cuda.device(dev):
+        host = tuple(torch.empty_like(t, device="cpu", pin_memory=True).copy_(t, non_blocking=True) for t in out)
+        done = torch.cuda.Event()
+        done.record()
+    return host, done
+
+
 def batched_detect(
     detector,
     images: Sequence[np.ndarray],
@@ -49,11 +70,11 @@ def batched_detect(
     padded = [pad_to_bucket(img) for img in images]
     results: List[Optional[Detections]] = [None] * len(images)
     ladder = _ladder(batch_size)
-    launched: List = []  # (chunk, result) of launches not fetched yet
+    launched: List = []  # (chunk, (outputs, done)) of launches not drained yet
 
     def drain_one():
-        chunk, out = launched.pop(0)
-        for i, d in zip(chunk, detector.results_to_detections(out, thresh, hi=len(chunk))):
+        chunk, (out, done) = launched.pop(0)
+        for i, d in zip(chunk, detector.results_to_detections(out, thresh, hi=len(chunk), done=done)):
             results[i] = d
 
     for shape, idxs in _groups(padded).items():
@@ -70,7 +91,7 @@ def batched_detect(
                 batch[j] = padded[i]
             hws[: len(chunk)] = real_hws
             fn = detector._batch_fn(bs, shape, size, identity=identity)
-            launched.append((chunk, fn(*stage_inputs(None, batch, hws, dev))))
+            launched.append((chunk, _fetch_behind(fn(*stage_inputs(None, batch, hws, dev)))))
             while len(launched) > inflight:
                 drain_one()
     while launched:
@@ -109,13 +130,15 @@ def batched_detect_tta(
         ]
     parts: List[List[np.ndarray]] = [[] for _ in images]
     lm_parts: List[List] = [[] for _ in images]
-    launched: List = []  # (chunk, size, result) of launches not fetched yet
+    launched: List = []  # (chunk, size, (outputs, done)) of launches not drained yet
 
     def drain_one():
-        chunk, size, out = launched.pop(0)
+        chunk, size, (out, done) = launched.pop(0)
         with annotate("tcf.results"):
-            boxes, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
-            lms = out[2].cpu().numpy() if len(out) == 3 else None
+            if done is not None:
+                done.synchronize()
+            boxes, scores = out[0].numpy(), out[1].numpy()
+            lms = out[2].numpy() if len(out) == 3 else None
             for j, i in enumerate(chunk):
                 if size not in sizes_per_img[i]:
                     continue
@@ -143,7 +166,7 @@ def batched_detect_tta(
                     fn = detector._batch_fn(bs, shape, size)
                 if launch_log is not None:
                     launch_log.append((bs, shape, size, flip))
-                launched.append((chunk, size, fn(dev_batch, dev_hws)))
+                launched.append((chunk, size, _fetch_behind(fn(dev_batch, dev_hws))))
                 while len(launched) > inflight:
                     drain_one()
     while launched:
