@@ -32,7 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from perfbench.reference.model import Network, float32_exact
+from perfbench import registry
+from perfbench.reference.model import float32_exact
 
 
 def normalise(frames_rgb01: torch.Tensor, mean, std) -> torch.Tensor:
@@ -133,12 +134,14 @@ def to_frame(v: dict, s, px, py, h: int, w: int, mirror_edge: Optional[float], p
 
 class Detector:
     """The reference detector of one configuration (a dict read from its
-    file) on raw `variables` already on the device (`model.to_device`);
-    with `low`, its network computes in float8 (the control)."""
+    file) on raw `variables` already on the device (`model.to_device`):
+    the network of the configuration's architecture (`reference/<arch>.py`)
+    and the decode below; with `low`, its network computes in float8 (the
+    control)."""
 
     def __init__(self, cfg: dict, variables: dict, low: bool = False):
         self.cfg = cfg
-        self.net = Network(cfg, variables, low)
+        self.net = registry.reference(cfg).Network(cfg, variables, low)
         pp = cfg["preprocess"]
         self.mean, self.std = pp["mean"], pp["std"]
 

@@ -118,12 +118,11 @@ def picks(driver, call, traffic: dict, rng) -> list:
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, device, root=registry.ROOT) -> dict:
     """One run of a cell on `device`; the result object (see module doc)."""
-    from perfbench import program
-
     cell = registry.cell(cell_name, root)
     cfg, traffic = cell.config, cell.traffic
+    arch = registry.architecture(cfg)
     variables = make_variables(cfg, seed, device)
-    det = program.build(cfg, variables, device)
+    det = arch.program.build(cfg, variables, device)
     driver = registry.driver(traffic["entry"], root)(det, cfg, traffic, seed, device)
     window = registry.loop(traffic["loop"], root)
     driver.warmup()

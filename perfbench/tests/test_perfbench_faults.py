@@ -23,9 +23,9 @@ import json
 import numpy as np
 import pytest
 
-from perfbench import calibrate, program, registry, run
+from perfbench import calibrate, registry, run
 from perfbench.tests.pb_helpers import cpu, tiny_copy
-from perfbench.tests.test_perfbench_reference import TIGHT, float32_program
+from perfbench.tests.test_perfbench_reference import TIGHT, compute_float32
 from tpucenterface_torch.detector import Detections
 
 CELLS = ["centerface-mbv2.batch32-640", "mbv2x1.4-fpn48.batch32-640", "centerface-mbv2.wider-tta"]
@@ -62,15 +62,16 @@ CASES = ([(c, f) for c in CELLS for f in sorted(OUTPUT_FAULTS) if f != "landmark
          + [("centerface-mbv2.wider-tta", "flip_pairs")])
 
 
-def plant(monkeypatch, root, fault):
+def plant(monkeypatch, root, cell, fault):
     if fault == "flip_pairs":
-        sound = program.detector_config
+        prog = registry.program(registry.cell(cell, root).config)
+        sound = prog.detector_config
 
         def unswapped(cfg, _sound=sound):
             dc = _sound(cfg)
             return dataclasses.replace(dc, decode=dataclasses.replace(dc.decode, lm_flip_perm=(0, 1, 2, 3, 4)))
 
-        monkeypatch.setattr(program, "detector_config", unswapped)
+        monkeypatch.setattr(prog, "detector_config", unswapped)
         return
     for entry in ("detect_batch", "detect_tta"):
         cls = registry.driver(entry, root)
@@ -89,13 +90,12 @@ def plant(monkeypatch, root, fault):
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_planted_fault_makes_the_run_incorrect(cell, fault, tmp_path, monkeypatch):
     root = tiny_copy(tmp_path)
-    plant(monkeypatch, root, fault)
+    plant(monkeypatch, root, cell, fault)
     r = run.run(cell, 2**31 + 101, 0.3, False, cpu(), root=root)
     assert not r["correct"], r["check"]
     (root / "perfbench" / "limits" / f"{cell}.json").write_text(
         json.dumps({"limits": {k: {"limit": v} for k, v in TIGHT.items()}}))
-    f32 = program.detector_config
-    monkeypatch.setattr(program, "detector_config", lambda cfg: float32_program(cfg, f32))
+    compute_float32(monkeypatch, cell, root)
     r = run.run(cell, 2**31 + 101, 0.3, False, cpu(), root=root)
     assert not r["correct"], r["check"]
 

@@ -22,8 +22,12 @@ def loaded(body: str) -> set:
 
 
 def test_the_reference_loads_nothing_of_the_program_or_jax():
-    mods = loaded("import perfbench.reference.detect, perfbench.check, perfbench.work, perfbench.weights, "
-                  "perfbench.frames, perfbench.trace")
+    """Every module of `reference/`, every architecture's among them, and
+    the yardstick around it."""
+    refs = sorted(p.stem for p in (ROOT / "perfbench" / "reference").glob("*.py") if p.stem != "__init__")
+    assert {"detect", "model", "mobilenetv2"} <= set(refs)
+    mods = loaded("import importlib, perfbench.check, perfbench.work, perfbench.weights, perfbench.frames, "
+                  f"perfbench.trace\nfor m in {refs!r}: importlib.import_module('perfbench.reference.' + m)")
     assert not mods & {"jax", "jaxlib", "flax", "tpucenterface", "tpucenterface_torch"}
 
 

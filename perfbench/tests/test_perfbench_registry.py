@@ -1,15 +1,16 @@
 """BENCHMARK.json against the contract, and the harness finding every
-piece by its name, so that a cell, a configuration, a mix or a metric is
-added with new files and entries alone."""
+piece by its name, so that a cell, a configuration, an architecture, a mix
+or a metric is added with new files and entries alone."""
 
 import json
 import re
+from pathlib import Path
 
 import pytest
 
 from perfbench import check, registry
 from perfbench.drivers import Driver
-from perfbench.tests.pb_helpers import ROOT, cpu, tiny_copy
+from perfbench.tests.pb_helpers import RELU_CELL, ROOT, add_relu_architecture, cpu, tiny_copy
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -51,6 +52,8 @@ def test_benchmark_keys_and_names():
 def test_each_cell_is_found_by_name(cell):
     c = registry.cell(cell)
     assert c.config["name"] == c.workload["config"] and c.traffic["name"] == c.workload["traffic"]
+    ref, prog = registry.architecture(c.config)
+    assert callable(ref.Network) and callable(prog.build)
     assert c.limits and all(k.split(".")[0] in check.NUMBERS and k.split(".")[1] in check.STATS for k in c.limits)
     assert c.limits["missed.sum"] == 0.0
     assert callable(registry.loop(c.traffic["loop"])) and issubclass(registry.driver(c.traffic["entry"]), Driver)
@@ -117,3 +120,57 @@ def test_a_new_cell_config_mix_entry_and_metric_need_only_files_and_entries(tmp_
     assert r["metrics"]["calls_made"]["value"] >= 1
     assert r["attempted"] % 3 == 0 and r["checked_frames"] == 3 * min(2, r["attempted"] // 3)
     assert r["correct"], r["check"]
+
+
+def files(root):
+    return {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file()}
+
+
+def test_a_new_architecture_needs_only_files_and_entries(tmp_path, monkeypatch):
+    """In a copy: `mobilenetv2-relu` (a reference with ReLU where
+    `mobilenetv2` has ReLU6, a program built with `relu6=False`), a
+    configuration of it, a cell, its limits, and a `configs` and a
+    `workloads` entry; no file that was there changes but BENCHMARK.json's
+    two lists. The cell runs correct. The reference is the architecture's:
+    with the programs computing in float32 and limits a thousand times
+    tighter than the cells', the ReLU program agrees with it and
+    `mobilenetv2`'s ReLU6 program, on the same variables, does not. (At the
+    cell's own limits the two programs both pass: on these random weights
+    ReLU6 binds on about 0.1% of activations, PERF.md section 7.)"""
+    from perfbench import run
+    from perfbench.tests.test_perfbench_reference import TIGHT, compute_float32
+
+    root = tiny_copy(tmp_path)
+    before = files(root)
+    assert add_relu_architecture(root) == RELU_CELL
+    after = files(root)
+    changed = {p for p in before if after[p] != before[p]}
+    assert changed == {Path("BENCHMARK.json")}
+    old, new = (json.loads(x[Path("BENCHMARK.json")]) for x in (before, after))
+    for k in old:
+        assert new[k] == old[k] or (k in ("configs", "workloads") and new[k][:len(old[k])] == old[k]), k
+    seed = 2**31 + 41
+    r = run.run(RELU_CELL, seed, 0.2, False, cpu(), root=root)
+    assert r["checked_frames"] > 0 and r["correct"], r["check"]
+
+    (root / "perfbench" / "limits" / f"{RELU_CELL}.json").write_text(
+        json.dumps({"limits": {k: {"limit": v} for k, v in TIGHT.items()}}))
+    relu = compute_float32(monkeypatch, RELU_CELL, root)
+    relu6 = compute_float32(monkeypatch, "centerface-mbv2.batch32-640", root)
+    r = run.run(RELU_CELL, seed, 0.2, False, cpu(), root=root)
+    assert r["correct"], r["check"]
+    monkeypatch.setattr(relu, "build", lambda cfg, variables, device: relu6.build({**cfg, "relu6": True},
+                                                                                  variables, device))
+    r = run.run(RELU_CELL, seed, 0.2, False, cpu(), root=root)
+    assert r["checked_frames"] > 0 and not r["correct"], r["check"]
+
+
+@pytest.mark.parametrize("folder", ["reference", "programs"])
+def test_an_architecture_with_no_file_fails_naming_the_path(folder, tmp_path):
+    from perfbench import run
+
+    root = tiny_copy(tmp_path)
+    add_relu_architecture(root)
+    (root / "perfbench" / folder / "mobilenetv2-relu.py").unlink()
+    with pytest.raises(FileNotFoundError, match=f"perfbench/{folder}/mobilenetv2-relu.py"):
+        run.run(RELU_CELL, 3, 0.2, False, cpu(), root=root)

@@ -6,8 +6,8 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench import work
-from perfbench.reference.model import Network, blocks, to_device
+from perfbench import registry, work
+from perfbench.reference.model import to_device
 from perfbench.tests.pb_helpers import ROOT, cpu
 from perfbench.weights import make_variables
 
@@ -22,7 +22,7 @@ def config(name):
 @pytest.mark.parametrize("size", [64, 96, 160])
 def test_forward_flops_equal_the_flop_counter_on_the_reference(name, size):
     cfg = config(name)
-    net = Network(cfg, to_device(make_variables(cfg, 3, cpu()), "cpu"))
+    net = registry.reference(cfg).Network(cfg, to_device(make_variables(cfg, 3, cpu()), "cpu"))
     with FlopCounterMode(display=False) as fc:
         net(torch.zeros(1, 3, size, size))
     assert fc.get_total_flops() == work.forward_flops(cfg, size)
@@ -32,11 +32,10 @@ def test_forward_flops_equal_the_flop_counter_on_the_reference(name, size):
 def test_forward_flops_equal_the_flop_counter_on_the_port(name):
     """The port's module forward, unfolded with separate heads, computes the
     same operations: the count does not depend on who computes them."""
-    from perfbench import program
     from tpucenterface_torch.model.centernet import load_network
 
     cfg = config(name)
-    dc = program.detector_config(cfg)
+    dc = registry.program(cfg).detector_config(cfg)
     model = dc.model.__class__(**{**dc.model.__dict__, "compute_dtype": "float32"})
     net = load_network(make_variables(cfg, 3, cpu()), model, torch.device("cpu"))
     with FlopCounterMode(display=False) as fc:
@@ -56,7 +55,7 @@ def test_stride1_blocks_are_the_networks(name):
     cfg = config(name)
     got = work.stride1_blocks(cfg, 640, 640, 1)
     assert [b.index for b in got] == [0, 2, 4, 5, 7, 8, 9, 10, 11, 12, 14, 15, 16]
-    assert [b.index for b in got] == [i for i, b in enumerate(blocks(cfg)) if b.stride == 1]
+    assert [b.index for b in got] == [i for i, b in enumerate(registry.reference(cfg).blocks(cfg)) if b.stride == 1]
 
 
 def test_stride1_block_work_by_hand():

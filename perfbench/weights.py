@@ -2,7 +2,8 @@
 
 The variables are the raw ones a trained checkpoint holds (JAX layout:
 HWIO kernels; BatchNorm scale, bias, running mean and variance, unfolded),
-for every leaf that `reference.model.leaf_shapes` lists. The draws:
+for every leaf that the architecture's `leaf_shapes` lists
+(`reference/<arch>.py`), drawn by its kind:
 - conv kernels normal with variance 1.125 / fan_in. With He's 2 / fan_in
   the random network is chaotic: it amplified a perturbation of its input
   twentyfold by the last block, and bfloat16 rounding alone moved the
@@ -10,7 +11,8 @@ for every leaf that `reference.model.leaf_shapes` lists. The draws:
   few hundredths; at 1.125 a perturbation shrinks through the network;
 - BatchNorm scale uniform in [0.8, 1.2], bias normal (std 0.1), running
   mean normal (std 0.1), running variance uniform in [0.6, 1.4];
-- head conv biases normal (std 0.1), the heads' 1x1 out kernels He's;
+- head conv biases and plain conv biases (kind `bias`, such as a squeeze
+  and excitation gate's) normal (std 0.1), the heads' 1x1 out kernels He's;
 - then each head's out conv scaled and shifted, channel by channel, so that
   on two painted 256 x 256 frames from the seed its map has the mean and
   spread a trained detector's has (`HEAD_TARGETS`): heatmap logits at the
@@ -30,9 +32,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from perfbench.reference.model import leaf_shapes
+from perfbench import registry
 
 _UNIFORM = {"bn_scale": (0.8, 1.2), "bn_var": (0.6, 1.4)}
+_NORMAL_01 = {"bn_bias", "bn_mean", "head_bias", "bias"}
 _GAIN = 1.125
 # head -> (mean, spread) of its map, in the map's units (cells for wh, off, lm)
 HEAD_TARGETS = {"hm": (None, 0.8), "wh": (4.0, 0.5), "off": (0.5, 0.1), "lm": (0.0, 0.45)}
@@ -42,7 +45,7 @@ WH_LOG_TARGET = (float(np.log(4.0)), 0.125)
 
 def make_variables(cfg: dict, seed: int, device) -> Dict[str, dict]:
     """{"params": ..., "batch_stats": ...} of float32 numpy arrays."""
-    leaves = leaf_shapes(cfg)
+    leaves = registry.reference(cfg).leaf_shapes(cfg)
     sizes = [int(np.prod(shape)) for _, shape, _ in leaves]
     gen = torch.Generator(device=device).manual_seed(int(seed))
     normal = torch.randn(sum(sizes), generator=gen, device=device, dtype=torch.float32)
@@ -63,8 +66,10 @@ def make_variables(cfg: dict, seed: int, device) -> Dict[str, dict]:
             lo, hi = _UNIFORM[kind]
             scale[o:o + n], shift[o:o + n] = hi - lo, lo
             use_uniform[o:o + n] = True
-        else:  # bn_bias, bn_mean, head_bias
+        elif kind in _NORMAL_01:
             scale[o:o + n] = 0.1
+        else:
+            raise ValueError(f"no draw for the leaf kind {kind!r} of {'/'.join(path)}")
         o += n
     scale, shift, use_uniform = (torch.from_numpy(a).to(device) for a in (scale, shift, use_uniform))
     flat = (torch.where(use_uniform, uniform, normal) * scale + shift).cpu().numpy()
@@ -86,14 +91,14 @@ def _fit_heads(cfg: dict, variables: dict, gen: torch.Generator) -> None:
     painted frames."""
     from perfbench import frames
     from perfbench.reference.detect import letterbox, normalise
-    from perfbench.reference.model import Network, float32_exact, to_device
+    from perfbench.reference.model import float32_exact, to_device
 
     dev = gen.device
     imgs = frames.paint([(256, 256)] * 2, [4, 4], gen)
     x = torch.stack([letterbox(torch.from_numpy(f).to(dev), 256)[0] for f in imgs])
     pp = cfg["preprocess"]
     with torch.no_grad(), float32_exact():
-        maps = Network(cfg, to_device(variables, dev))(normalise(x, pp["mean"], pp["std"]))
+        maps = registry.reference(cfg).Network(cfg, to_device(variables, dev))(normalise(x, pp["mean"], pp["std"]))
     for name, y in maps.items():
         mean, spread = WH_LOG_TARGET if name == "wh" and cfg["wh_log"] else HEAD_TARGETS[name]
         mean = float(cfg["hm_bias_init"]) if mean is None else mean
